@@ -1,0 +1,44 @@
+"""The port stands alone: ``mmdyn_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "mmdyn_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import mmdyn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mmdyn_tpu_torch.__path__,
+                                               "mmdyn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_importing_every_port_module_loads_no_jax():
+    # a fresh interpreter: this test process has jax loaded by conftest
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 20, out.stdout
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b)"
+                        r"|\bmmdyn_tpu\.", re.MULTILINE)
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        hits = _FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path.relative_to(REPO)}: {hits}"
