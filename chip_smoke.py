@@ -10,11 +10,15 @@ Phases, one line each, any failure raises and exits non-zero:
    float32 means float32 in every comparison below.
 2. Build the CUDA kernels from ``mmdyn_tpu_torch/ops/csrc`` with nvcc.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
-   of the main path (batch 512) and at a ragged small shape: PoE with both
-   subset tables (rtol 1e-5, atol 1e-6), BCE with and without mask (rel
-   1e-5, and bit-identical across two launches). Kernel, plain-version and
-   library-call times (CUDA events, L2 flushed before every launch) beside
-   the byte / operation bound of the H100 SXM (3.35 TB/s, 67 TFLOP/s f32).
+   of the main path (batch 512) and at small, ragged and offset shapes: PoE
+   with both subset tables, every M in 1..4 with K = 7 and K = 1, B * D % 4
+   in {1, 2, 3}, an input off 16-byte alignment and batch 2048 (rtol 1e-5,
+   atol 1e-6); BCE with and without mask (rel 1e-5, and bit-identical
+   across two launches).
+   Kernel, plain-version and library-call times (CUDA events, L2 flushed
+   before every launch) beside the byte / operation bound of the H100 SXM
+   (3.35 TB/s, 67 TFLOP/s f32), and the timer's floor: one launch of a
+   one-float ``zero_()``.
 4. One flagship train step (cnn-mvae, visuotactile + pose, seq_modeling,
    latent 256, float32) at batch 32 on the card against the same step on
    the CPU (same weights, noise-free, no dropout): loss rel 1e-4 over two
@@ -23,7 +27,8 @@ Phases, one line each, any failure raises and exits non-zero:
    batch; the losses are finite and fall, and every step launched the PoE
    kernel once and the BCE kernel twice. Three more steps under
    torch.profiler give the device time by kernel and the device's busy
-   share (the top 40 kernels printed).
+   share (the top 40 kernels printed, then the port's own kernels whatever
+   their rank).
 5. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -47,6 +52,7 @@ F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 64 << 20       # more than the 50 MB L2
 POE_REPLACES = "mmdyn_tpu/ops/kernels.py:110"   # _poe_reparam_pallas -> _poe_kernel
 BCE_REPLACES = "mmdyn_tpu/ops/kernels.py:247"   # _bce_pallas -> _bce_kernel(_nomask)
+PORT_KERNELS = ("poe_reparam", "bce_partial", "bce_final")   # device kernel names
 
 
 def say(msg):
@@ -116,23 +122,50 @@ def synthetic_batch(b, seed=0, seq_len=2):
     }
 
 
+def subset_mask(k, m, seed):
+    """A (K, M) 0/1 mask whose every row holds expert 0, as the prior expert
+    is in every subset of the model's tables."""
+    rows = np.random.default_rng(seed).integers(0, 2, size=(k, m))
+    rows[:, 0] = 1
+    return rows.tolist()
+
+
+def poe_inputs(g, dev, mask, b, d, offset=False):
+    """mu, logvar (M, B, D) and noise (K, B, D); ``offset`` puts each one
+    float past a fresh allocation: contiguous, but off 16-byte alignment."""
+    k, m = mask.shape
+
+    def planes(count):
+        flat = torch.randn(count * b * d + int(offset), generator=g, device=dev)
+        return flat[int(offset):].view(count, b, d)
+
+    return planes(m), planes(m), planes(k)
+
+
 def check_poe(kernels, recon, timer, dev, b=512, d=256):
     g = torch.Generator(device=dev).manual_seed(1)
+    pose = recon.SUBSETS_POSE
+    cases = [("no_pose", recon.SUBSETS_NO_POSE, b, d, False),
+             ("pose", pose, b, d, False),
+             ("ragged", [r[1:3] for r in pose[3:5]], 3, 5, False)]
+    cases += [(f"M={m} K={k}", subset_mask(k, m, 10 * m + k), 64, d, False)
+              for m in range(1, 5) for k in (7, 1)]
+    cases += [(f"n%4={(bb * 257) % 4}", pose, bb, 257, False) for bb in (513, 514, 515)]
+    cases += [("misaligned", pose, b, d, True), ("B=2048", pose, 4 * b, d, False)]
     worst, entry = 0.0, None
-    cases = [("no_pose", recon.SUBSETS_NO_POSE, b, d), ("pose", recon.SUBSETS_POSE, b, d),
-             ("ragged", recon.SUBSETS_POSE[3:5], 3, 5)]
-    for name, rows, bb, dd in cases:
+    for name, rows, bb, dd, offset in cases:
         mask = torch.tensor(rows, dtype=torch.float32, device=dev)
-        if name == "ragged":
-            mask = mask[:, 1:3].contiguous()          # K=2, M=2
         k, m = mask.shape
-        mu, lv = (torch.randn((m, bb, dd), generator=g, device=dev) for _ in range(2))
-        noise = torch.randn((k, bb, dd), generator=g, device=dev)
+        mu, lv, noise = poe_inputs(g, dev, mask, bb, dd, offset)
+        if offset and mu.data_ptr() % 16 == 0:
+            raise AssertionError("the misaligned case is aligned")
         got = kernels._poe_reparam_cuda(mu, lv, mask, noise)
         want = kernels.poe_reparam_plain(mu, lv, mask, noise)
         for x, y in zip(got, want):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
             worst = max(worst, float((x - y).abs().max()))
+        if name == "B=2048":
+            b2048_ms = timer(lambda: kernels._poe_reparam_cuda(mu, lv, mask, noise))
         if name == "pose":
             n = bb * dd
             ms = timer(lambda: kernels._poe_reparam_cuda(mu, lv, mask, noise))
@@ -147,9 +180,11 @@ def check_poe(kernels, recon, timer, dev, b=512, d=256):
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                      "shape": f"M={m} K={k} B={bb} D={dd}", "bytes": bytes_moved}
     entry["max_abs_err"] = worst
-    say(f"[3/6] poe_reparam ok (no_pose, pose, ragged): max |kernel - plain| "
-        f"{worst:.3g}; {entry['ms']:.4f} ms vs plain {entry['plain_ms']:.4f} ms, "
-        f"bound {entry['bound_ms']:.4f} ms ({entry['bytes'] / 1e6:.2f} MB)")
+    entry["b2048_ms"] = b2048_ms
+    say(f"[3/6] poe_reparam ok ({', '.join(c[0] for c in cases)}): max |kernel - "
+        f"plain| {worst:.3g}; {entry['ms']:.4f} ms vs plain "
+        f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+        f"({entry['bytes'] / 1e6:.2f} MB); B=2048 {b2048_ms:.4f} ms")
     return entry
 
 
@@ -280,6 +315,13 @@ def profile(step, state, batch, gen, kl, steps=3, top=40):
     for e in events[:top]:
         say(f"  {dev_us(e) / 1e3 / steps:10.4f} ms/step {e.count // steps:5d}x  "
             f"{e.key[:140]}")
+    # the port's own kernels, whatever their rank (L2 as the step leaves it)
+    ours = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
+    if not ours:
+        raise AssertionError(f"the profile shows none of {PORT_KERNELS}")
+    say("[profile] the port's kernels per step: " + "; ".join(
+        f"{e.key[:60]} {dev_us(e) / 1e3 / steps:.4f} ms in {e.count // steps}x "
+        f"({dev_us(e) / e.count:.2f} us each)" for e in ours))
 
 
 def main():
@@ -306,6 +348,9 @@ def main():
     dev = torch.device("cuda")
     timer = Timer(dev)
     entries = [check_poe(kernels, recon, timer, dev), check_bce(kernels, timer, dev)]
+    one = torch.zeros(1, device=dev)
+    say(f"[3/6] timer floor: a one-float zero_() reads {timer(one.zero_):.5f} ms "
+        f"(the event pair and one launch)")
 
     cfg = ProblemConfig(problem_type="seq_modeling", model_name="cnn-mvae",
                         input_type="visuotactile", use_pose=True, latent_size=256,

@@ -3,16 +3,20 @@ version, its ``torch.autograd.Function`` and a launch counter.
 
 ``fused_poe_reparam`` — product-of-experts posterior of all K modality subsets
 plus the reparameterised sample, in one pass.
-  * Replaces ``_poe_kernel`` / ``_poe_reparam_pallas`` in
-    ``mmdyn_tpu/ops/kernels.py``; CUDA source ``csrc/poe_reparam.cu``.
-  * Bound by memory bytes: (2M + K) floats read and 3K written per (b, d)
-    element; at the flagship's M=4, K=7, B=512, D=256 that is 18.9 MB, 5.6 us
-    at the H100's 3.35 TB/s.
+  * Replaces ``_poe_kernel`` (``mmdyn_tpu/ops/kernels.py:86``, launched by
+    ``_poe_reparam_pallas``); CUDA source ``csrc/poe_reparam.cu``.
+  * Bound by memory bytes on paper: (2M + K) floats read and 3K written per
+    (b, d) element; at the flagship's M=4, K=7, B=512, D=256 that is 18.9 MB,
+    5.6 us at the H100's 3.35 TB/s.
   * Design: the TPU kernel casts the M-contraction as a (K, M) x (M, Bt*D)
-    MXU matmul. With M <= 4 and K <= 7 the contraction belongs in registers:
-    one thread per element loads its M experts once and loops over K subsets
-    with the mask in shared memory. No alignment gate: the grid-stride loop
-    covers a ragged edge.
+    MXU matmul. With M <= 4 and K <= 7 the contraction belongs in registers.
+    The flagship shape is one wave of the card, so the kernel is one chain of
+    latencies (loads, 18 IEEE divisions and 18 log / exp per element,
+    stores): one thread per element gives the most warps to hide them; M and
+    K are template parameters, so the subsets are straight-line code; every
+    load, the mask's included (read-only path, no shared-memory prologue),
+    is issued before any arithmetic. Any ``B * D`` and any offset view take
+    the same path.
 
 ``fused_masked_bce_sum`` — sum-reduced BCE-with-logits of (K, B, ...) logits
 against a (B, ...) target shared over K, optionally masked.
@@ -102,9 +106,11 @@ def _poe_reparam_cuda(mu, logvar, mask, noise):
                     ("noise", noise)):
         _require_cuda_f32(name, t, mu.device)
 
-    lib = build.load("poe_reparam")
     z, pd_mu, pd_lv = (torch.empty((k, b, d), device=mu.device,
                                    dtype=torch.float32) for _ in range(3))
+    if b * d == 0:              # no elements: nothing to build or launch
+        return z, pd_mu, pd_lv
+    lib = build.load("poe_reparam")
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     build.check(lib.poe_reparam_f32(
         mu.data_ptr(), logvar.data_ptr(), mask.data_ptr(), noise.data_ptr(),

@@ -48,10 +48,41 @@ def _t(*arrays):
 
 # --- fused PoE + reparameterisation ----------------------------------------
 
-@pytest.mark.parametrize("table", ["no_pose", "pose"])
+def _subset_mask(k, m, seed):
+    """A (K, M) 0/1 mask with expert 0 (the prior) in every row."""
+    rows = np.random.default_rng(seed).integers(0, 2, size=(k, m)).astype(np.float32)
+    rows[:, 0] = 1.0
+    return rows
+
+
+def _poe_case(case):
+    """The two subset tables, every (M, K) the CUDA kernel is instantiated
+    for at the ends of K (1 and 7), and ragged B * D (% 4 in {1, 2, 3})."""
+    if case in SUBSET_TABLES:
+        return _poe_data(case)
+    kind, x, y = case.split("-")
+    if kind == "ragged":
+        b, d = int(x), int(y)
+        return _poe_data("pose", seed=b * d, b=b, d=d)
+    m, k = int(x[1:]), int(y[1:])
+    rng = np.random.default_rng(10 * m + k)
+    mu, lv = (rng.normal(size=(m, 3, 8)).astype(np.float32) for _ in range(2))
+    noise = rng.normal(size=(k, 3, 8)).astype(np.float32)
+    return mu, lv, _subset_mask(k, m, 10 * m + k), noise
+
+
+POE_CASES = (["no_pose", "pose"]
+             + [f"mk-M{m}-K{k}" for m in range(1, 5) for k in (1, 7)]
+             + ["ragged-5-13", "ragged-6-11", "ragged-7-9"])
+
+
+# The CPU path only: the CUDA kernel's own ragged, off-alignment and (M, K)
+# checks against this plain version run on the card, in chip_smoke.py's
+# check_poe.
+@pytest.mark.parametrize("table", POE_CASES)
 @pytest.mark.parametrize("fn", ["plain", "wrapper"])
 def test_poe_reparam_matches_jax(table, fn):
-    mu, lv, mask, noise = _poe_data(table)
+    mu, lv, mask, noise = _poe_case(table)
     want = jk._poe_reparam_jnp(*map(jnp.asarray, (mu, lv, mask, noise)))
     port = tk.poe_reparam_plain if fn == "plain" else tk.fused_poe_reparam
     got = port(*_t(mu, lv, mask, noise))
@@ -110,6 +141,17 @@ def test_poe_reparam_cuda_rejects_bad_input(bad):
         match = "contiguous"
     with pytest.raises(ValueError, match=match):
         tk._poe_reparam_cuda(mu, lv, mask, noise)
+
+
+def test_poe_reparam_cuda_returns_empty_outputs_for_no_elements():
+    """B * D = 0: three empty (K, B, D) outputs, with no build and no launch,
+    as the CPU path gives."""
+    mu, lv, mask, noise = _t(*_poe_data("pose", b=0))
+    before = tk.fused_poe_reparam.launches
+    got = tk._poe_reparam_cuda(mu, lv, mask, noise)
+    want = tk.poe_reparam_plain(mu, lv, mask, noise)
+    assert [g.shape for g in got] == [w.shape for w in want] == [(7, 0, 16)] * 3
+    assert tk.fused_poe_reparam.launches == before
 
 
 # --- fused masked BCE + sum --------------------------------------------------
