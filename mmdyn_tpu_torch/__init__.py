@@ -5,8 +5,10 @@ same path:
 
 * ``mmdyn_tpu_torch.ops``      — PoE fusion, reparameterisation, ELBO losses,
   and the two hand-written CUDA kernels (``ops/kernels.py``, ``ops/csrc``).
-* ``mmdyn_tpu_torch.models``   — layers, the multimodal VAE, the factory.
-* ``mmdyn_tpu_torch.problems`` — problem config, batch parsing, subset-ELBO.
+* ``mmdyn_tpu_torch.models``   — layers, the VAE, the multimodal VAE, the
+  regressor, the factory.
+* ``mmdyn_tpu_torch.problems`` — problem config, batch parsing and
+  augmentation, the losses of every family.
 * ``mmdyn_tpu_torch.train``    — train state and the train / eval / sample steps.
 * ``mmdyn_tpu_torch.utils``    — device resolution, weights carried over from
   the JAX package's flax parameters.

@@ -1,4 +1,5 @@
-"""Model families: so far the multimodal VAE (PoE)."""
+"""Model families: the VAE, the multimodal VAE (PoE) and the regressor."""
 
-from mmdyn_tpu_torch.models.factory import count_parameters, setup_model
-from mmdyn_tpu_torch.models.vae import MVAE, Decoder, Encoder
+from mmdyn_tpu_torch.models.factory import count_parameters, model_kwargs, setup_model
+from mmdyn_tpu_torch.models.regressor import Regressor
+from mmdyn_tpu_torch.models.vae import MVAE, VAE, Decoder, Encoder

@@ -1,5 +1,7 @@
-"""MVAE subset-ELBO: loss and metrics (port of
-``mmdyn_tpu/problems/reconstruction.py::mvae_evaluate``).
+"""Losses and metrics of the model families (port of
+``mmdyn_tpu/problems/reconstruction.py``): the MVAE subset-ELBO
+(``mvae_evaluate``), the VAE ELBO (``vae_evaluate``) and the regressor's MSE
+(``regression_evaluate``).
 
 The reference evaluates the MVAE by running the whole model once per
 modality subset, 3 passes without pose and 7 with (mmdyn/pytorch/problems/
@@ -14,6 +16,10 @@ problems.py:473-529). As in the JAX package, the same loss is computed with:
    loss, with BatchNorm statistics per subset (``models.vae.Decoder``);
 4. each image reconstruction term one ``fused_masked_bce_sum`` call over
    its subsets.
+
+A conditional MVAE hands its condition to both image encoders and both image
+decoders, never to the pose pair. The VAE and the regressor run no kernel:
+their losses are plain in the JAX package too.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import functools
 import torch
 
 from mmdyn_tpu_torch.ops.kernels import fused_masked_bce_sum, fused_poe_reparam
-from mmdyn_tpu_torch.ops.losses import bce_with_logits, kl_divergence, mse
+from mmdyn_tpu_torch.ops.losses import bce_with_logits, elbo_loss, kl_divergence, mse
 
 # Expert order: [prior, visual, tactile] (+ [pose]).
 # Subset rows mirror the reference pass order (problems.py:478-529).
@@ -86,7 +92,8 @@ def mvae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
         generator: ``torch.Generator`` on the model's device; draws, in order,
                    the visual and tactile dropout masks and the (K, B, D)
                    reparameterisation noise.
-        inputs:    'visual', 'tactile' (B, H, W, C), optional 'pose' (B, 7).
+        inputs:    'visual', 'tactile' (B, H, W, C), optional 'pose' (B, 7),
+                   optional 'shock' (the condition of a conditional model).
         targets:   'visual', 'tactile', optional 'pose', optional 'loss_mask'.
         kl_weight: float or 0-dim tensor.
         cfg:       ``ProblemConfig``.
@@ -96,15 +103,14 @@ def mvae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
         'perf_measure' (mean BCE / MSE of the single-modality subsets,
         problems.py:499-535) and the joint posterior 'means' / 'log_var'.
     """
-    if cfg.conditional:
-        raise NotImplementedError("the conditional MVAE is not ported yet")
     use_pose = cfg.use_pose
     visual, tactile = inputs["visual"], inputs["tactile"]
+    condition = inputs.get("shock") if cfg.conditional else None
     t_v, t_t = targets["visual"], targets["tactile"]
     loss_mask = targets.get("loss_mask") if cfg.mask_loss else None
 
-    mu_v, lv_v = model.encode_visual(visual, generator)
-    mu_t, lv_t = model.encode_tactile(tactile, generator)
+    mu_v, lv_v = model.encode_visual(visual, condition, generator)
+    mu_t, lv_t = model.encode_tactile(tactile, condition, generator)
     experts_mu = [torch.zeros_like(mu_v), mu_v, mu_t]
     experts_lv = [torch.zeros_like(lv_v), lv_v, lv_t]
     if use_pose:
@@ -123,8 +129,8 @@ def mvae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
                             dtype=mu_v.dtype, device=mu_v.device)
     z, pd_mu, pd_lv = fused_poe_reparam(mu_m, lv_m, subsets, noise)
 
-    recon_v = model.decode_visual(z.index_select(0, vis_idx))
-    recon_t = model.decode_tactile(z.index_select(0, tac_idx))
+    recon_v = model.decode_visual(z.index_select(0, vis_idx), condition)
+    recon_t = model.decode_tactile(z.index_select(0, tac_idx), condition)
     recon_error = (_img_recon_sum(recon_v, t_v, loss_mask)
                    + _img_recon_sum(recon_t, t_t, loss_mask))
     if use_pose:
@@ -150,3 +156,31 @@ def mvae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
         recon_x["pose"] = recon_p[0].detach()
     return loss, {"recon_x": recon_x, "perf_measure": perf,
                   "means": pd_mu[0].detach(), "log_var": pd_lv[0].detach()}
+
+
+def vae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
+    """VAE ELBO loss + metrics (problems.py:683-716 for seq_modeling; the
+    reconstruction path, problems.py:460-471, is its targets == inputs case).
+    ``generator`` draws the dropout mask, then the reparameterisation noise.
+    """
+    x = inputs["x"]
+    condition = inputs.get("shock") if cfg.conditional else None
+    target = targets["x"]
+    loss_mask = targets.get("loss_mask") if cfg.mask_loss else None
+    recon, mu, lv = model(x, condition, generator)
+    loss = elbo_loss(recon, target, mu, lv, kl_weight=kl_weight, loss_mask=loss_mask)
+    recon = recon.detach().reshape(target.shape)
+    perf = {cfg.input_type: bce_with_logits(recon, target, "mean")}
+    return loss, {"recon_x": recon, "perf_measure": perf,
+                  "means": mu.detach(), "log_var": lv.detach()}
+
+
+def regression_evaluate(model, generator, inputs, targets, kl_weight, cfg):
+    """MSE-sum pose regression, not divided by the batch (problems.py:318-331).
+    ``kl_weight`` is unused; ``generator`` draws the dropout mask."""
+    condition = inputs.get("shock") if cfg.conditional else None
+    target = targets["pose"]
+    out = model(inputs["x"], condition, generator).reshape(target.shape)
+    loss = mse(out, target, "sum")
+    out = out.detach()
+    return loss, {"outputs": out, "perf_measure": {"pose": mse(out, target, "mean")}}

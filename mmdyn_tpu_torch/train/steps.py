@@ -1,8 +1,9 @@
 """Train / eval / sample steps (port of ``mmdyn_tpu/train/steps.py``).
 
 Each factory resolves its device once (the card unless ``device="cpu"`` is
-passed) and returns a step that moves the batch there, runs the subset-ELBO
-forward and, for training, the backward and the optimizer update. Steps run
+passed) and returns a step that moves the batch there, augments it when
+``cfg.augment`` asks and the step trains, runs the family's loss forward and,
+for training, the backward and the optimizer update. Steps run
 eagerly; the model and optimizer live in the ``TrainState`` and update in
 place.
 """
@@ -13,6 +14,7 @@ import torch
 
 from mmdyn_tpu_torch.problems.base import ProblemConfig
 from mmdyn_tpu_torch.problems.specs import evaluate, parse_batch
+from mmdyn_tpu_torch.problems.transforms import augment_batch
 from mmdyn_tpu_torch.utils.device import resolve_device
 
 
@@ -26,7 +28,9 @@ def _to_device(batch, device):
 
 def _loss_fn(model, cfg, batch, generator, kl_weight, train=False):
     if train and cfg.augment:
-        raise NotImplementedError("augment_batch is not ported yet")
+        # train-time only; its draws come from the generator before the model's
+        batch = augment_batch(batch, generator, max_shift=cfg.augment_shift,
+                              brightness=cfg.augment_brightness)
     inputs, targets = parse_batch(cfg, batch)
     return evaluate(cfg, model, generator, inputs, targets, kl_weight)
 
@@ -76,18 +80,23 @@ def make_eval_step(cfg: ProblemConfig, device=None):
 
 def make_sample_fn(cfg: ProblemConfig, n: int = 50, device=None):
     """Prior sampling for latent-space logging (problems.py:548-559): draws
-    z ~ N(0, I) (n samples) and decodes; the sigmoid is for visualisation
-    only (problems.py:616-626). Returns (model, generator) -> images."""
+    z ~ N(0, I) (n samples) and decodes, with an optional condition for a
+    conditional model; the sigmoid is for visualisation only
+    (problems.py:616-626). Returns (model, generator, condition=None) ->
+    ``{"visual", "tactile"}`` images for the MVAE, ``{input_type: ...}`` for
+    a VAE; None for regression."""
     if cfg.problem_type == "regression":
         return None
-    if not (cfg.is_mvae and cfg.cross_modal):
-        raise NotImplementedError(f"{cfg.model_name} is not ported yet")
     device = resolve_device(device)
 
     @torch.no_grad()
-    def sample(model, generator):
+    def sample(model, generator, condition=None):
         z = torch.randn((n, cfg.latent_size), generator=generator, device=device)
-        vis, tac = model.inference(z)
-        return {"visual": torch.sigmoid(vis), "tactile": torch.sigmoid(tac)}
+        if condition is not None:
+            condition = torch.as_tensor(condition, dtype=torch.float32, device=device)
+        if cfg.is_mvae and cfg.cross_modal:
+            vis, tac = model.inference(z, condition)
+            return {"visual": torch.sigmoid(vis), "tactile": torch.sigmoid(tac)}
+        return {cfg.input_type: torch.sigmoid(model.inference(z, condition))}
 
     return sample

@@ -12,7 +12,14 @@ arrays and returns a ``state_dict`` that the port's model loads with
 * the encoder FC reads, and the decoder ``upsample`` writes, the 5x5x256
   bottleneck flattened NHWC in flax and NCHW here: rows / columns (and the
   upsample bias) are permuted;
-* BatchNorm: scale / bias -> weight / bias; the port keeps no running stats.
+* BatchNorm: scale / bias -> weight / bias; the port keeps no running stats;
+* a conditional model's heads and ``upsample`` take the condition's columns
+  after the features, on both sides, so the same rules carry them.
+
+The tree decides the layout: a VAE's ``encoder`` / ``decoder`` (cnn-vae,
+mlp-vae, and an mvae name on single-modality input, which the factory builds
+as a VAE), the regressor's trunk at the top with ``out_0..2`` as
+``out_net.0/2/4``, else the MVAE's modality pairs.
 
 The rules are linear maps, so they carry gradients as well as weights.
 """
@@ -41,28 +48,36 @@ def _bn(out, prefix, p):
     out[prefix + ".bias"] = p["bias"]
 
 
+def _linear(out, name, p):
+    out[name + ".weight"] = np.asarray(p["kernel"]).T
+    out[name + ".bias"] = p["bias"]
+
+
 def _mlp(out, prefix, p):
     j = 0
     while f"linear_{j}" in p:
-        out[f"{prefix}.{2 * j}.weight"] = np.asarray(p[f"linear_{j}"]["kernel"]).T
-        out[f"{prefix}.{2 * j}.bias"] = p[f"linear_{j}"]["bias"]
+        _linear(out, f"{prefix}.{2 * j}", p[f"linear_{j}"])
         j += 1
+
+
+def _conv_trunk(out, p, prefix):
+    """The DCGAN trunk and its FC 6400 -> 512, shared by encoder and regressor."""
+    for fl, th in _ENC_CONV:
+        out[prefix + th + ".weight"] = np.asarray(p[fl]["kernel"]).transpose(3, 2, 0, 1)
+    for fl, th in _ENC_BN:
+        _bn(out, prefix + th, p[fl])
+    out[prefix + "fc_net.0.weight"] = np.asarray(p["fc"]["kernel"])[_nhwc_to_nchw_perm()].T
+    out[prefix + "fc_net.0.bias"] = p["fc"]["bias"]
 
 
 def _encoder(p, prefix):
     out = {}
     if "conv_0" in p:
-        for fl, th in _ENC_CONV:
-            out[prefix + th + ".weight"] = np.asarray(p[fl]["kernel"]).transpose(3, 2, 0, 1)
-        for fl, th in _ENC_BN:
-            _bn(out, prefix + th, p[fl])
-        out[prefix + "fc_net.0.weight"] = np.asarray(p["fc"]["kernel"])[_nhwc_to_nchw_perm()].T
-        out[prefix + "fc_net.0.bias"] = p["fc"]["bias"]
+        _conv_trunk(out, p, prefix)
     else:
         _mlp(out, prefix + "fc_net", p["fc_net"])
     for head in ("linear_means", "linear_log_var"):
-        out[prefix + head + ".weight"] = np.asarray(p[head]["kernel"]).T
-        out[prefix + head + ".bias"] = p[head]["bias"]
+        _linear(out, prefix + head, p[head])
     return out
 
 
@@ -84,14 +99,20 @@ def _decoder(p, prefix):
 
 def params_from_jax(model_name, params):
     """flax params tree (numpy leaves) -> the port's ``state_dict``."""
-    if "mvae" not in model_name:
-        raise NotImplementedError(f"{model_name} is not ported yet")
     out = {}
-    for name in ("visual_encoder", "tactile_encoder", "pose_encoder"):
-        if name in params:
-            out.update(_encoder(params[name], name + "."))
-    for name in ("visual_decoder", "tactile_decoder", "pose_decoder"):
-        if name in params:
-            out.update(_decoder(params[name], name + "."))
+    if "regressor" in model_name:
+        _conv_trunk(out, params, "")
+        for j in range(3):
+            _linear(out, f"out_net.{2 * j}", params[f"out_{j}"])
+    elif "encoder" in params:
+        out.update(_encoder(params["encoder"], "encoder."))
+        out.update(_decoder(params["decoder"], "decoder."))
+    else:
+        for name in ("visual_encoder", "tactile_encoder", "pose_encoder"):
+            if name in params:
+                out.update(_encoder(params[name], name + "."))
+        for name in ("visual_decoder", "tactile_decoder", "pose_decoder"):
+            if name in params:
+                out.update(_decoder(params[name], name + "."))
     return {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in out.items()}
