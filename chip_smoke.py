@@ -7,7 +7,8 @@ NVIDIA Hopper card.
 Phases, any failure raises and exits non-zero:
 
 1. torch version; TF32 off for cuDNN convolutions and for matmuls, so that
-   float32 means float32 in every comparison below.
+   float32 means float32 in every comparison below, and bf16 matmuls summed
+   in float32 (``utils/device.py::set_reference_precision``, as the CLI).
 2. Build the CUDA kernels from ``mmdyn_tpu_torch/ops/csrc`` with nvcc.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    of the seq flagship (batch 512) and of dyn_modeling (256 x 8 = 2048 rows)
@@ -18,14 +19,25 @@ Phases, any failure raises and exits non-zero:
    bit-identical across two launches). Kernel, plain-version and
    library-call times (CUDA events, L2 flushed before every launch) beside
    the byte / operation bound of the H100 SXM (3.35 TB/s, 67 TFLOP/s f32),
-   and the timer's floor: one launch of a one-float ``zero_()``.
+   and the timer's floor: one launch of a one-float ``zero_()``. The bf16
+   instantiation of BCE (bf16 logits, f32 target and mask) the same way at
+   the main and dyn shapes, masked and not (rel 1e-5, bit-identical reruns),
+   its library call ``F.binary_cross_entropy_with_logits`` on the upcast
+   logits.
 4. Train steps on the card against the same steps on the CPU (same weights,
    no dropout, loss rel 1e-4 over two steps): the seq flagship at batch 32;
    dyn_modeling at 8 x 4 with ``mask_loss`` (the masked BCE kernel inside a
    step); the conditional MVAE with a 3-wide shock; cnn-vae seq_modeling
    visual; mlp-vae reconstruction tactile; the conditional regressor. The
    MVAEs run noise-free; the VAEs' reparameterisation noise is pinned to one
-   CPU-drawn tensor on both devices for the check's duration.
+   CPU-drawn tensor on both devices for the check's duration. Then the seq
+   flagship at batch 32 under ``bfloat16`` and ``bfloat16_full`` (loss rel
+   1e-4, as in float32), the BCE launches taking the bf16 instantiation
+   under ``bfloat16_full``; and one card step of it under each policy with
+   the biases set to 0, every conv / Linear output bf16-representable under
+   the bf16 policies and none under ``float32`` (the losses of float32 and
+   ``bfloat16`` differ by about the card-vs-CPU gap, so only this shows that
+   the card rounds).
 5. The paths, each through ``setup_model`` / ``make_optimizer`` /
    ``make_train_step`` on one repeated synthetic batch, with the kernel
    counters set to 0 just before and read just after; losses finite and
@@ -38,8 +50,26 @@ Phases, any failure raises and exits non-zero:
        per step): 1 warm-up and 4 timed steps, 1 PoE and 2 BCE launches
        each, then 2 profiled steps (the top 25 kernels and the port's own);
    (c) cnn-vae, visual, seq_modeling, batch 1024: 5 steps, no kernel
-       launch (its loss has no kernel in the JAX package either).
-   ms/step and frames/s of each (frames: B rows per step, B * T for dyn).
+       launch (its loss has no kernel in the JAX package either);
+   (d) the seq flagship under ``bfloat16_full`` (``bench.py``'s policy):
+       5 steps and 3 profiled, 2 BCE launches a step on bf16 logits;
+   (e) dyn_modeling 256 x 8 under ``bfloat16_full``: 5 steps;
+   ms/step and frames/s of each (frames: B rows per step, B * T for dyn);
+   (f) the training CLI in process (``cli.main.main``): a 2,600-sequence x
+       2-frame corpus written once by the port's ``make_compiled_arrays``
+       (packed directory) into a temporary directory; cnn-mvae visuotactile
+       + pose seq_modeling, batch 512, ``--dtype auto`` (float32), 2 epochs
+       of 4 steps and 1 validation batch; the loop's frames/s beside (a)'s.
+       Then: one train step run twice from the same state and a second
+       uninterrupted run (is the card step run-to-run deterministic with
+       torch's default cuDNN algorithms?). Then, with cuDNN's deterministic
+       algorithms for these runs only: an uninterrupted run, whose step
+       must rerun bit for bit; a 1-epoch run, whose ``latest`` checkpoint
+       restored into a fresh state must equal its state bit for bit
+       (parameters, Adam's moments and step counts, the generator); and that
+       run continued with ``--resume`` to 2, whose parameters must equal the
+       uninterrupted ones bit for bit. Then ``cli.evaluate.main`` on the run
+       when Pillow imports.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -47,6 +77,7 @@ Without a CUDA device the script prints no result and exits 1.
 """
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -65,6 +96,7 @@ L2_FLUSH_BYTES = 64 << 20       # more than the 50 MB L2
 POE_REPLACES = "mmdyn_tpu/ops/kernels.py:110"   # _poe_reparam_pallas -> _poe_kernel
 BCE_REPLACES = "mmdyn_tpu/ops/kernels.py:247"   # _bce_pallas -> _bce_kernel(_nomask)
 PORT_KERNELS = ("poe_reparam", "bce_partial", "bce_final")   # device kernel names
+CONV_KERNELS = ("fprop", "dgrad", "wgrad", "fft", "conv", "cgemm")   # by kernel name
 
 
 def say(msg):
@@ -263,6 +295,65 @@ def check_bce(kernels, timer, dev, k=4, b=512, p=64 * 64 * 3, dyn_rows=2048):
     return entry
 
 
+def check_bce_bf16(kernels, timer, dev, k=4, b=512, p=64 * 64 * 3, dyn_rows=2048):
+    """The bf16-logit instantiation against the plain version on the same
+    bf16 logits (f32 target and mask), masked and not, at the main and dyn
+    shapes, with bit-identical reruns; timed unmasked, as ``bfloat16_full``
+    runs it, beside its byte bound and the library call on the upcast
+    logits."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst_rel, timed = 0.0, {}
+    for name, bb in (("main", b), ("dyn", dyn_rows)):
+        x = (torch.randn((k, bb, p), generator=g, device=dev) * 3).to(torch.bfloat16)
+        z = torch.rand((bb, p), generator=g, device=dev)
+        mask = (torch.rand((bb, p), generator=g, device=dev) > 0.3).float()
+        for m in (None, mask):
+            got = kernels._bce_sum_cuda(x, z, m)
+            again = kernels._bce_sum_cuda(x, z, m)
+            if not torch.equal(got, again):
+                raise AssertionError(f"bce_sum bf16 {name} differs between two launches: "
+                                     f"{float(got)!r} vs {float(again)!r}")
+            want = kernels.bce_sum_plain(x, z, m)
+            rel = abs(float(got) - float(want)) / abs(float(want))
+            if rel > 1e-5:
+                raise AssertionError(f"bce_sum bf16 {name} mask={m is not None}: "
+                                     f"{float(got)!r} vs plain {float(want)!r}")
+            worst_rel = max(worst_rel, rel)
+            if m is None:
+                bytes_moved = x.numel() * 2 + z.numel() * 4 + 4
+                bound_ms, bound_by = bound(bytes_moved, 8 * x.numel())
+                timed[name] = {
+                    "shape": f"K={k} B={bb} P={p} bf16",
+                    "max_abs_err": abs(float(got) - float(want)),
+                    "ms": timer(lambda: kernels._bce_sum_cuda(x, z, None)),
+                    "plain_ms": timer(lambda: kernels.bce_sum_plain(x, z, None)),
+                    "library_ms": timer(lambda: F.binary_cross_entropy_with_logits(
+                        x.float(), z.expand_as(x), reduction="sum")),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved}
+        timed[name]["masked_ms"] = timer(lambda: kernels._bce_sum_cuda(x, z, mask))
+        del x, z, mask
+    say(f"[3/6] bce_sum bf16 logits ok (main, dyn; mask and none; bit-identical reruns): "
+        f"max rel err {worst_rel:.3g}" + "".join(
+            f"; {t['shape']}: {t['ms']:.4f} ms (masked {t['masked_ms']:.4f}) vs plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bytes'] / 1e6:.1f} MB)" for t in timed.values()))
+    return {**timed["main"], "dyn": timed["dyn"]}
+
+
+def reset_counters(kernels):
+    kernels.fused_poe_reparam.launches = 0
+    kernels.fused_masked_bce_sum.launches = 0
+    kernels.fused_masked_bce_sum.launches_bf16 = 0
+
+
+def read_counters(kernels):
+    return {"poe_reparam": kernels.fused_poe_reparam.launches,
+            "bce_sum": kernels.fused_masked_bce_sum.launches,
+            "bce_sum_bf16": kernels.fused_masked_bce_sum.launches_bf16}
+
+
 def train_state(cfg, device, seed=0, **overrides):
     from mmdyn_tpu_torch.models import model_kwargs, setup_model
     from mmdyn_tpu_torch.problems import make_optimizer
@@ -292,10 +383,12 @@ def pinned_vae_noise():
         vae.reparametrize = real
 
 
-def check_card_vs_cpu(kernels, cfg, b, seq_len=2, shock=0, launches=(0, 0), steps=2):
-    """Two train steps on the card and on the CPU from the same weights and
-    batch, no dropout: the losses agree to rel 1e-4, and each card step
-    launched (PoE, BCE) = ``launches`` kernels."""
+def check_card_vs_cpu(kernels, cfg, b, seq_len=2, shock=0, launches=(0, 0), steps=2,
+                      rel=1e-4):
+    """Two train steps on the card and on the CPU from the same weights,
+    batch and policy, no dropout: the losses agree to ``rel``, and each card
+    step launched (PoE, BCE) = ``launches`` kernels, the BCE ones on bf16
+    logits under ``bfloat16_full``."""
     cfg = dataclasses.replace(cfg, batchsize=b, noise_free=cfg.is_mvae)
     batch = synthetic_batch(b, seed=3, seq_len=seq_len, shock=shock,
                             random_seg=cfg.mask_loss)
@@ -304,26 +397,72 @@ def check_card_vs_cpu(kernels, cfg, b, seq_len=2, shock=0, launches=(0, 0), step
         for dev in ("cuda", "cpu"):
             state, step = train_state(cfg, dev, dropout_rate=0.0)
             gen = torch.Generator(device=dev).manual_seed(0)
-            kernels.fused_poe_reparam.launches = kernels.fused_masked_bce_sum.launches = 0
+            reset_counters(kernels)
             losses[dev] = [float(step(state, batch, gen, 1.0)[1]["loss"])
                            for _ in range(steps)]
             if dev == "cuda":
-                got = (kernels.fused_poe_reparam.launches,
-                       kernels.fused_masked_bce_sum.launches)
-                if got != tuple(steps * n for n in launches):
-                    raise AssertionError(f"{cfg.model_name} {cfg.problem_type}: "
-                                         f"(PoE, BCE) launches {got} over {steps} steps")
+                got = read_counters(kernels)
+                bf16 = launches[1] if cfg.compute_dtype == "bfloat16_full" else 0
+                if got != dict(zip(got, (steps * n for n in launches + (bf16,)))):
+                    raise AssertionError(f"{cfg.model_name} {cfg.problem_type} "
+                                         f"{cfg.compute_dtype}: launches {got} over "
+                                         f"{steps} steps")
+    gaps = [abs(a - c) / abs(c) for a, c in zip(losses["cuda"], losses["cpu"])]
     for i, (a, c) in enumerate(zip(losses["cuda"], losses["cpu"])):
-        if not math.isclose(a, c, rel_tol=1e-4):
-            raise AssertionError(f"{cfg.model_name} {cfg.problem_type} step {i}: "
-                                 f"card loss {a!r} vs cpu {c!r}")
+        if not math.isclose(a, c, rel_tol=rel):
+            raise AssertionError(f"{cfg.model_name} {cfg.problem_type} "
+                                 f"{cfg.compute_dtype} step {i}: card loss {a!r} vs cpu {c!r}")
     rows = b * seq_len if cfg.problem_type == "dyn_modeling" else b
     say(f"[4/6] {cfg.model_name} {cfg.problem_type} {cfg.input_type}"
         f"{' +pose' if cfg.use_pose and cfg.is_mvae else ''}"
         f"{f' cond S={shock}' if cfg.conditional else ''}"
-        f"{' mask' if cfg.mask_loss else ''}, {rows} rows: card matches cpu over "
-        f"{steps} steps (rel 1e-4), (PoE, BCE) launches per step {launches}: "
-        f"card {losses['cuda']} cpu {losses['cpu']}")
+        f"{' mask' if cfg.mask_loss else ''} {cfg.compute_dtype}, {rows} rows: card "
+        f"matches cpu over {steps} steps (rel {rel:g}; gap {max(gaps):.3g}), (PoE, BCE) "
+        f"launches per step {launches}: card {losses['cuda']} cpu {losses['cpu']}")
+
+
+def check_bf16_rounding(cfg, b=32):
+    """One card train step of ``cfg`` at batch ``b`` under each policy, every
+    bias set to 0, each Linear / Conv2d / ConvTranspose2d output read by a
+    forward hook. With no bias to add, a product rounded to bf16 is
+    bf16-representable whatever dtype carries it: under ``bfloat16`` every
+    output must be float32 holding bf16 values, under ``bfloat16_full`` bf16,
+    and under ``float32`` none may be. So a policy that silently ran float32
+    fails here, which the losses cannot show: the float32 and ``bfloat16``
+    losses of the card-vs-CPU checks differ by about those checks'
+    card-vs-CPU gap."""
+    batch = synthetic_batch(b, seed=4)
+    read = {}
+    for policy in ("float32", "bfloat16", "bfloat16_full"):
+        state, step = train_state(dataclasses.replace(
+            cfg, batchsize=b, compute_dtype=policy, noise_free=True), "cuda", dropout_rate=0.0)
+        layers = [m for m in state.model.modules() if isinstance(
+            m, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+        outputs = []
+
+        def hook(module, args, out):
+            out = out.detach()
+            outputs.append((out.dtype, torch.equal(out, out.to(torch.bfloat16).to(out.dtype))))
+
+        with torch.no_grad():
+            for m in layers:
+                if m.bias is not None:
+                    m.bias.zero_()
+        for m in layers:
+            m.register_forward_hook(hook)
+        step(state, batch, torch.Generator(device="cuda").manual_seed(0), 1.0)
+        read[policy] = (sum(r for _, r in outputs), len(outputs),
+                        sorted({str(d).removeprefix("torch.") for d, _ in outputs}))
+    want = {"float32": (0, ["float32"]), "bfloat16": (None, ["float32"]),
+            "bfloat16_full": (None, ["bfloat16"])}
+    for policy, (rounded, n, dtypes) in read.items():
+        must_round, must_dtypes = want[policy]
+        if n < 10 or dtypes != must_dtypes or rounded != (n if must_round is None else 0):
+            raise AssertionError(f"bf16 rounding under {policy}: {rounded} of {n} layer "
+                                 f"outputs bf16-representable, dtypes {dtypes}")
+    say(f"[4/6] bf16 rounding, seq flagship batch {b}, biases 0: layer outputs "
+        f"bf16-representable / hooked (dtype): " + "; ".join(
+            f"{p} {r}/{n} ({', '.join(d)})" for p, (r, n, d) in read.items()))
 
 
 def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_steps=0,
@@ -339,8 +478,7 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
              for k, v in synthetic_batch(cfg.batchsize, seq_len=seq_len).items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     kl = torch.tensor(1.0, device=dev)
-    kernels.fused_poe_reparam.launches = 0
-    kernels.fused_masked_bce_sum.launches = 0
+    reset_counters(kernels)
     losses = [step(state, batch, gen, kl)[1]["loss"]]  # step 1 also warms up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -348,12 +486,12 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
         losses.append(step(state, batch, gen, kl)[1]["loss"])
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (steps - 1)
-    launches = {"poe_reparam": kernels.fused_poe_reparam.launches,
-                "bce_sum": kernels.fused_masked_bce_sum.launches}
+    launches = read_counters(kernels)
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: losses not finite and falling: {losses}")
     want = {name: n * steps for name, n in per_step.items()}
+    want["bce_sum_bf16"] = want["bce_sum"] if cfg.compute_dtype == "bfloat16_full" else 0
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches} over {steps} "
                              f"steps, expected {want}")
@@ -361,18 +499,20 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     frames = cfg.batchsize * (seq_len if dyn else 1)
     say(f"[5/6] {label}: {cfg.model_name} {cfg.input_type}"
         f"{'+pose' if cfg.use_pose and cfg.is_mvae else ''} {cfg.problem_type} "
-        f"latent {cfg.latent_size} f32, batch {cfg.batchsize}"
+        f"latent {cfg.latent_size} {cfg.compute_dtype}, batch {cfg.batchsize}"
         f"{f' x {seq_len}' if dyn else ''}: {step_s * 1e3:.3f} ms/step, "
         f"{frames / step_s:.1f} frames/s on {card}; losses {losses}; launches "
         f"{launches} over {steps} steps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out = {"step_ms": step_s * 1e3, "frames_per_s": frames / step_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "launches_per_step": per_step}
     if profile_steps:
-        profile(step, state, batch, gen, kl, steps=profile_steps, top=top)
+        out.update(profile(step, state, batch, gen, kl, steps=profile_steps, top=top))
     del state, batch
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    return {"step_ms": step_s * 1e3, "frames_per_s": frames / step_s,
-            "launches": launches, "launches_per_step": per_step}
+    return out
 
 
 def profile(step, state, batch, gen, kl, steps=3, top=40):
@@ -394,8 +534,11 @@ def profile(step, state, batch, gen, kl, steps=3, top=40):
         getattr(e, "self_cuda_time_total", 0)  # noqa: E731
     events.sort(key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    conv_ms = sum(dev_us(e) for e in events
+                  if any(c in e.key.lower() for c in CONV_KERNELS)) / 1e3
     say(f"[profile] {steps} steps, wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); top kernels per step:")
+        f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); convolution kernels by name "
+        f"{conv_ms:.3f} ms ({conv_ms / busy_ms:.1%} of busy); top kernels per step:")
     for e in events[:top]:
         say(f"  {dev_us(e) / 1e3 / steps:10.4f} ms/step {e.count // steps:5d}x  "
             f"{e.key[:140]}")
@@ -406,6 +549,188 @@ def profile(step, state, batch, gen, kl, steps=3, top=40):
     say("[profile] the port's kernels per step: " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3 / steps:.4f} ms in {e.count // steps}x "
         f"({dev_us(e) / e.count:.2f} us each)" for e in ours))
+    return {"busy_share": busy_ms / wall_ms, "conv_share": conv_ms / busy_ms}
+
+
+@torch.no_grad()
+def param_diffs(a, b):
+    """|a - b| per parameter of two models of one architecture, by name."""
+    return {name: float((p - q).abs().max())
+            for (name, p), q in zip(a.named_parameters(), b.parameters())}
+
+
+def max_param_diff(a, b):
+    """The largest |a - b| over the parameters of two models."""
+    return max(param_diffs(a, b).values())
+
+
+def step_rerun_diff(problem):
+    """One train step of ``problem`` run twice from the same model, optimizer
+    and generator state on the same batch: the largest parameter difference
+    between the two results (0.0 if the card step is deterministic) and the
+    names of the parameters that differ."""
+    from mmdyn_tpu_torch.data.loader import to_device_batch
+
+    state, gen = problem.state, problem.generator
+    model_sd = copy.deepcopy(state.model.state_dict())
+    opt_sd = copy.deepcopy(state.optimizer.state_dict())
+    gen_sd = gen.get_state()
+    batch = to_device_batch(next(iter(problem.train_loader)), problem.device)
+    results = []
+    for _ in range(2):
+        state.model.load_state_dict(model_sd)
+        state.optimizer.load_state_dict(copy.deepcopy(opt_sd))   # Adam updates in place
+        gen.set_state(gen_sd)
+        problem.train_step(state, batch, gen, 1.0)
+        results.append(copy.deepcopy(state.model))
+    diffs = param_diffs(*results)
+    return max(diffs.values()), sorted(name for name, d in diffs.items() if d > 0)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block only: the paths and
+    the determinism reading outside it run with torch's defaults."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def check_restore(problem):
+    """``problem``'s ``latest`` checkpoint restored into a fresh train state
+    (other initial weights) on the card, as ``--resume`` restores it, equals
+    ``problem``'s state in memory bit for bit: every parameter, Adam's moments
+    and step counts, the step, the epoch and the generator's state. Returns
+    the number of tensors compared."""
+    from mmdyn_tpu_torch.train.checkpoint import restore_checkpoint
+
+    fresh, _ = train_state(problem.cfg, problem.device, seed=1)
+    epoch, _, gen_state, batch_in_epoch = restore_checkpoint(
+        problem.checkpoint_dir / "latest", fresh)
+
+    def tensors(state):
+        out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+        for i, s in state.optimizer.state_dict()["state"].items():
+            out.update({f"adam.{i}.{k}": torch.as_tensor(v) for k, v in s.items()})
+        return out
+
+    got, want = tensors(fresh), tensors(problem.state)
+    differ = sorted(k for k in want if k not in got
+                    or not torch.equal(got[k].cpu(), want[k].cpu()))
+    if (differ or got.keys() != want.keys() or fresh.step != problem.state.step
+            or (epoch, batch_in_epoch) != (problem.cfg.num_epochs - 1, 0)
+            or not torch.equal(gen_state, problem.generator.get_state())):
+        raise AssertionError(f"(f): the restored checkpoint differs from the run's state: "
+                             f"{differ[:10]}, step {fresh.step} vs {problem.state.step}, "
+                             f"epoch {epoch}, batch_in_epoch {batch_in_epoch}")
+    return len(want)
+
+
+def cli_path(kernels, card, bare_frames_per_s):
+    """(f): the training CLI in process on a corpus written for it, then the
+    determinism probe and a second uninterrupted run with torch's default
+    cuDNN algorithms; with deterministic ones, an uninterrupted run, the
+    probe again, a 1-epoch run whose checkpoint is restored and compared, and
+    its ``--resume`` to epoch 2; then the evaluation CLI."""
+    import importlib.util
+    import tempfile
+
+    from mmdyn_tpu_torch.cli import evaluate as cli_evaluate
+    from mmdyn_tpu_torch.cli import main as cli_main
+    from mmdyn_tpu_torch.data.compile import COMPILED_NAME
+    from mmdyn_tpu_torch.data.synthetic import make_compiled_arrays
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        make_compiled_arrays(tmp / "ds" / COMPILED_NAME, n_sequences=2600, seq_length=2,
+                             seed=0, packed_dir=True)
+        corpus_s = time.perf_counter() - t0
+        argv = ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
+                "--input-type", "visuotactile", "--use-pose", "--dataset-path",
+                str(tmp / "ds"), "--batchsize", "512", "--dtype", "auto",
+                "--no-tensorboard", "--logs-root", str(tmp / "logs")]
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        run = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "run")])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters(kernels)
+        logs = run._logger_dict
+        losses = logs["Loss/train_epoch"] + logs["Loss/validation_epoch"]
+        shape = (run.cfg.compute_dtype, len(run.train_loader), len(run.test_loader))
+        if shape != ("float32", 4, 1):
+            raise AssertionError(f"(f): (policy, train batches, test batches) {shape}")
+        # 2 epochs x (4 train + 1 validation) forwards
+        if launches != {"poe_reparam": 10, "bce_sum": 20, "bce_sum_bf16": 0}:
+            raise AssertionError(f"(f): kernel launches {launches} over 2 epochs")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"(f): losses not finite: {losses}")
+        fps = logs["Perf/frames_per_sec"]
+        say(f"[5/6] (f) cli.main: cnn-mvae visuotactile+pose seq_modeling, batch 512, "
+            f"--dtype auto -> {run.cfg.compute_dtype}, 2 epochs of 4 steps + 1 validation "
+            f"batch on {card}: {wall_s:.2f} s (corpus written in {corpus_s:.2f} s); "
+            f"loop frames/s by epoch {fps} against (a)'s bare step "
+            f"{bare_frames_per_s:.1f} ({fps[-1] / bare_frames_per_s:.1%}); train losses "
+            f"{logs['Loss/train_epoch']}, validation {logs['Loss/validation_epoch']}; "
+            f"launches {launches}")
+
+        final = copy.deepcopy(run.state.model)
+        step_diff, differing = step_rerun_diff(run)
+        again = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "again")])
+        rerun_diff = max_param_diff(final, again.state.model)
+        deterministic = step_diff == 0.0 and rerun_diff == 0.0
+        say(f"[5/6] (f) determinism, torch's default cuDNN algorithms: one step run twice "
+            f"from one state differs by {step_diff!r} (max |param|), two uninterrupted "
+            f"2-epoch runs by {rerun_diff!r}: the card step is "
+            f"{'deterministic' if deterministic else 'NOT run-to-run deterministic'}; after "
+            f"one step {len(differing)} parameters differ: {differing}")
+
+        # A rerun's spread is as large as what a resume that lost Adam's or the
+        # generator's state would show, so the resume is held bit for bit, with
+        # cuDNN's deterministic algorithms for these three runs only.
+        with deterministic_cudnn():
+            full = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "det")])
+            det_final = copy.deepcopy(full.state.model)
+            det_step_diff, det_differing = step_rerun_diff(full)
+            first = cli_main.main(argv + ["--num-epochs", "1", "--log-dir",
+                                          str(tmp / "resumed")])
+            n_restored = check_restore(first)
+            resumed = cli_main.main(argv + ["--num-epochs", "2", "--log-dir",
+                                            str(tmp / "resumed"), "--resume"])
+        resume_diff = max_param_diff(det_final, resumed.state.model)
+        det_fps = full._logger_dict["Perf/frames_per_sec"]
+        say(f"[5/6] (f) resume, cuDNN deterministic algorithms: one step run twice differs "
+            f"by {det_step_diff!r} ({len(det_differing)} parameters); the 1-epoch run's "
+            f"'latest' restored into a fresh state on the card equals the run's state bit "
+            f"for bit ({n_restored} tensors: parameters, Adam moments and step counts; the "
+            f"step, the epoch and the generator's state); 1 epoch + --resume to 2 vs "
+            f"uninterrupted: {resume_diff!r}; loop frames/s by epoch {det_fps} (default "
+            f"algorithms {fps})")
+        if det_step_diff != 0.0 or resume_diff != 0.0:
+            raise AssertionError(f"(f): with deterministic cuDNN one step reruns to "
+                                 f"{det_step_diff!r} and the resumed run differs by "
+                                 f"{resume_diff!r} from the uninterrupted one; both must be 0")
+
+        if importlib.util.find_spec("PIL") is None:
+            say("[5/6] (f) cli.evaluate: Pillow does not import here, so the evaluation "
+                "CLI (PNG grids) is covered by the CPU tests only")
+        else:
+            metrics = cli_evaluate.main(["--run", str(tmp / "run"), "--batchsize", "512"])
+            plots = sorted(p.name for p in (tmp / "run" / "plot").iterdir())
+            if not math.isfinite(metrics["test_loss_total"]) or "recon_visual.png" not in plots:
+                raise AssertionError(f"(f) evaluate: {metrics}, {plots}")
+            say(f"[5/6] (f) cli.evaluate: test loss {metrics['test_loss_total']!r}; "
+                f"wrote {plots}")
+        del run, again, full, first, resumed, final, det_final
+    torch.cuda.empty_cache()
+    return {"frames_per_s": fps, "launches": launches, "step_rerun_diff": step_diff,
+            "rerun_diff": rerun_diff, "deterministic": deterministic,
+            "det_step_rerun_diff": det_step_diff, "det_resume_diff": resume_diff,
+            "det_frames_per_s": det_fps}
 
 
 def main():
@@ -418,11 +743,13 @@ def main():
     from mmdyn_tpu_torch.problems import ProblemConfig
     from mmdyn_tpu_torch.problems import reconstruction as recon
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from mmdyn_tpu_torch.utils.device import set_reference_precision
+
+    set_reference_precision()
     card = card_line()
     say(f"[1/6] torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)} ({card}); TF32 off (cuDNN and matmul)")
+        f"{torch.cuda.get_device_name(0)} ({card}); TF32 off (cuDNN and matmul), "
+        f"bf16 matmuls sum in f32")
 
     secs = build.build_all()
     for name in build.SOURCES:
@@ -432,6 +759,7 @@ def main():
     dev = torch.device("cuda")
     timer = Timer(dev)
     entries = [check_poe(kernels, recon, timer, dev), check_bce(kernels, timer, dev)]
+    entries[1]["bf16"] = check_bce_bf16(kernels, timer, dev)
     one = torch.zeros(1, device=dev)
     say(f"[3/6] timer floor: a one-float zero_() reads {timer(one.zero_):.5f} ms "
         f"(the event pair and one launch)")
@@ -455,6 +783,10 @@ def main():
     check_card_vs_cpu(kernels, ProblemConfig(
         problem_type="regression", model_name="regressor", input_type="visual",
         conditional=True, condition_dim=3), 8, shock=3)
+    for policy in ("bfloat16", "bfloat16_full"):
+        check_card_vs_cpu(kernels, dataclasses.replace(flag, compute_dtype=policy), 32,
+                          launches=(1, 2))
+    check_bf16_rounding(flag)
 
     mvae_per_step = {"poe_reparam": 1, "bce_sum": 2}
     torch.cuda.reset_peak_memory_stats()
@@ -465,18 +797,29 @@ def main():
                                  seq_len=8, profile_steps=2, top=25),
         "cnn-vae": run_path("(c) cnn-vae", vae, kernels, card,
                             {"poe_reparam": 0, "bce_sum": 0}),
+        "seq_bf16_full": run_path("(d) seq flagship", dataclasses.replace(
+            flag, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step,
+            profile_steps=3),
+        "dyn_bf16_full": run_path("(e) dyn_modeling", dataclasses.replace(
+            dyn, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step, seq_len=8),
     }
+    cli = cli_path(kernels, card, paths["seq_modeling"]["frames_per_s"])
 
     for e in entries:
         e["launches"] = paths["seq_modeling"]["launches"][e["name"]]
         e["launches_by_path"] = {name: p["launches"][e["name"]] for name, p in paths.items()}
+        e["launches_by_path"]["cli"] = cli["launches"][e["name"]]
         e["launches_per_step"] = {name: p["launches_per_step"][e["name"]]
                                   for name, p in paths.items()}
+    bf16 = entries[1]["bf16"]
+    bf16.update(launches=paths["seq_bf16_full"]["launches"]["bce_sum_bf16"],
+                launches_by_path={name: p["launches"]["bce_sum_bf16"]
+                                  for name, p in paths.items()})
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
-    say("[6/6] " + json.dumps({name: {"step_ms": p["step_ms"],
-                                      "frames_per_s": p["frames_per_s"]}
-                               for name, p in paths.items()}))
+    say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (
+        "step_ms", "frames_per_s", "peak_gib", "busy_share", "conv_share") if k in p}
+        for name, p in paths.items()}, "cli": cli}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from mmdyn_tpu_torch import config
-from mmdyn_tpu_torch.models.layers import torch_default_init_
+from mmdyn_tpu_torch.models.layers import check_policy, torch_default_init_
 from mmdyn_tpu_torch.models.regressor import Regressor
 from mmdyn_tpu_torch.models.vae import MVAE, VAE
 from mmdyn_tpu_torch.utils.device import resolve_device
@@ -20,15 +20,14 @@ def setup_model(model_name, cross_modal=False, device=None, seed=0, **kwargs):
     as the reference VAE ignores it), else the regressor. ``kwargs`` are the
     JAX modules' fields. Weights take torch's default init from a CPU
     generator seeded with ``seed``, so one seed gives the same weights on
-    every device. The bf16 ``compute_dtype`` policies are not ported yet and
-    raise NotImplementedError.
+    every device. ``compute_dtype`` is one of ``float32``, ``bfloat16``
+    and ``bfloat16_full`` (``models/layers.py``); the parameters are float32
+    under all three.
     """
     if model_name not in config.MODELS:
         raise ValueError(f"Model {model_name!r} is not implemented")
     device = resolve_device(device)
-    dtype = kwargs.pop("compute_dtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(f"compute_dtype {dtype!r} is not ported yet")
+    check_policy(kwargs.setdefault("compute_dtype", "float32"))
     if "mvae" in model_name and cross_modal:
         model = MVAE(**kwargs)
     elif "vae" in model_name:

@@ -17,6 +17,17 @@ form is here:
   ``torch.Generator``.
 * ``Mlp`` — the reference ``mlp()`` stack: Linear -> act for all but the last
   layer (vae.py:14-19); its children are numbered as the reference's.
+* ``Linear`` / ``Conv2d`` / ``ConvTranspose2d`` — torch's layers under an
+  activation policy (``compute_dtype``, JAX ``layers.py:201-227``):
+
+  - ``float32``: torch's own forward, unchanged.
+  - ``bfloat16``: the input and the weight are cast to bf16 for the product
+    (the tensor cores accumulate in float32), the output is upcast to
+    float32, and the bias is added in float32.
+  - ``bfloat16_full``: the same product, but the output stays bf16, and so
+    do the bias add and everything elementwise after it.
+
+  Parameters, and so Adam's state, stay float32 under every policy.
 * ``torch_default_init_`` — torch's default init (kaiming_uniform(a=sqrt(5))
   weights, U(+-1/sqrt(fan_in)) biases) drawn from an explicit generator.
 """
@@ -28,8 +39,11 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from mmdyn_tpu_torch.config import BN_EPS
+
+POLICIES = ("float32", "bfloat16", "bfloat16_full")
 
 
 def swish(x):
@@ -42,16 +56,47 @@ class Swish(nn.Module):
         return swish(x)
 
 
+def check_policy(compute_dtype: str) -> str:
+    """``compute_dtype`` if it names a policy; ``auto`` must be resolved
+    first (``problems.base.select_compute_dtype``)."""
+    if compute_dtype not in POLICIES:
+        raise ValueError(f"compute_dtype {compute_dtype!r} is not one of {POLICIES}")
+    return compute_dtype
+
+
+def cast_compute(x, weight, compute_dtype):
+    """The operands of a conv or matmul in the policy's compute dtype (JAX
+    ``_cast_compute``): both bf16 under the bf16 policies."""
+    if compute_dtype == "float32":
+        return x, weight
+    return x.to(torch.bfloat16), weight.to(torch.bfloat16)
+
+
+def uncast(y, compute_dtype):
+    """The dtype written at the layer boundary (JAX ``_uncast``): float32,
+    except under ``bfloat16_full``, where activations stay bf16."""
+    return y if compute_dtype == "bfloat16_full" else y.float()
+
+
 def train_batch_norm(x, weight, bias, groups=1, eps=BN_EPS):
     """Batch-statistics BN of an (G*N, C, ...) tensor, statistics taken per
-    (group, channel) over the N rows of the group and the spatial dims."""
+    (group, channel) over the N rows of the group and the spatial dims.
+
+    The statistics are float32 whatever the activation dtype; a bf16 input
+    is normalised in bf16, as JAX ``_train_bn_fwd_math`` does (upcasting
+    first, since ``var_mean`` of a bf16 tensor returns bf16 statistics)."""
     n, c = x.shape[0], x.shape[1]
     if n % groups:
         raise ValueError(f"batch {n} does not split into {groups} groups")
     xg = x.reshape(groups, n // groups, c, -1)
-    var, mean = torch.var_mean(xg, dim=(1, 3), correction=0, keepdim=True)
-    scale = torch.rsqrt(var + eps) * weight.reshape(1, 1, c, 1)
-    y = (xg - mean) * scale + bias.reshape(1, 1, c, 1)
+    var, mean = torch.var_mean(xg.float(), dim=(1, 3), correction=0, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    weight, bias = weight.reshape(1, 1, c, 1), bias.reshape(1, 1, c, 1)
+    if x.dtype == torch.float32:
+        y = (xg - mean) * (inv * weight) + bias
+    else:
+        dt = x.dtype
+        y = (xg - mean.to(dt)) * inv.to(dt) * weight.to(dt) + bias.to(dt)
     return y.reshape(x.shape)
 
 
@@ -79,14 +124,63 @@ def dropout(x, rate: float, generator=None):
     return torch.where(mask, x / keep, 0.0)
 
 
+def _with_bias(y, bias, spatial_dims=0):
+    """``y`` plus the bias in ``y``'s dtype, on the channel axis that
+    ``spatial_dims`` trailing dims follow."""
+    if bias is None:
+        return y
+    return y + bias.to(y.dtype).reshape((-1,) + (1,) * spatial_dims)
+
+
+class Linear(nn.Linear):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: str = "float32"):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = check_policy(compute_dtype)
+
+    def forward(self, x):
+        if self.compute_dtype == "float32":
+            return super().forward(x)
+        xc, wc = cast_compute(x, self.weight, self.compute_dtype)
+        return _with_bias(uncast(F.linear(xc, wc), self.compute_dtype), self.bias)
+
+
+class Conv2d(nn.Conv2d):
+    def __init__(self, *args, compute_dtype: str = "float32", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = check_policy(compute_dtype)
+
+    def forward(self, x):
+        if self.compute_dtype == "float32":
+            return super().forward(x)
+        xc, wc = cast_compute(x, self.weight, self.compute_dtype)
+        y = F.conv2d(xc, wc, None, self.stride, self.padding, self.dilation, self.groups)
+        return _with_bias(uncast(y, self.compute_dtype), self.bias, 2)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def __init__(self, *args, compute_dtype: str = "float32", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = check_policy(compute_dtype)
+
+    def forward(self, x):
+        if self.compute_dtype == "float32":
+            return super().forward(x)
+        xc, wc = cast_compute(x, self.weight, self.compute_dtype)
+        y = F.conv_transpose2d(xc, wc, None, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation)
+        return _with_bias(uncast(y, self.compute_dtype), self.bias, 2)
+
+
 class Mlp(nn.Sequential):
     """Linear -> act for all but the last layer, identity on the output."""
 
-    def __init__(self, in_dim: int, sizes: Sequence[int], activation: str = "relu"):
+    def __init__(self, in_dim: int, sizes: Sequence[int], activation: str = "relu",
+                 compute_dtype: str = "float32"):
         act = {"relu": nn.ReLU, "swish": Swish}[activation]
         layers = []
         for j, size in enumerate(sizes):
-            layers.append(nn.Linear(in_dim, size))
+            layers.append(Linear(in_dim, size, compute_dtype=compute_dtype))
             in_dim = size
             if j < len(sizes) - 1:
                 layers.append(act())

@@ -5,7 +5,8 @@ The encoders' DCGAN conv trunk, FC 6400 -> 512 + Swish + Dropout(0.1), an
 optional condition concat, then an MLP head 512(+S) -> 256 -> 256 -> out_dim
 (the 7-D pose by default). Parameters are named as the reference's torch
 ``state_dict``: ``conv_net.*`` and ``fc_net.0`` at the top, ``out_net.0/2/4``
-for the head.
+for the head. ``compute_dtype`` is the activation policy of every conv and
+Linear; the pose comes out float32 under every policy (regressor.py:61-63).
 """
 
 from __future__ import annotations
@@ -17,24 +18,26 @@ import torch
 import torch.nn as nn
 
 from mmdyn_tpu_torch.config import DROPOUT_RATE
-from mmdyn_tpu_torch.models.layers import Swish, dropout
+from mmdyn_tpu_torch.models.layers import Linear, Swish, dropout
 from mmdyn_tpu_torch.models.vae import BOTTLENECK, condition_width, conv_trunk
 
 
 class Regressor(nn.Module):
     def __init__(self, out_dim: int = 7, conditional: bool = False,
                  condition_dim: Optional[int] = None,
-                 dropout_rate: float = DROPOUT_RATE):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
         super().__init__()
         self.conditional = conditional
         self.dropout_rate = dropout_rate
-        self.conv_net = conv_trunk()
-        self.fc_net = nn.Sequential(nn.Linear(math.prod(BOTTLENECK), 512), Swish())
+        dt = compute_dtype
+        self.conv_net = conv_trunk(dt)
+        self.fc_net = nn.Sequential(
+            Linear(math.prod(BOTTLENECK), 512, compute_dtype=dt), Swish())
         fan_in = 512 + condition_width(conditional, condition_dim)
         self.out_net = nn.Sequential(
-            nn.Linear(fan_in, 256), nn.ReLU(),
-            nn.Linear(256, 256), nn.ReLU(),
-            nn.Linear(256, out_dim),
+            Linear(fan_in, 256, compute_dtype=dt), nn.ReLU(),
+            Linear(256, 256, compute_dtype=dt), nn.ReLU(),
+            Linear(256, out_dim, compute_dtype=dt),
         )
 
     def forward(self, x, c=None, generator=None):
@@ -47,4 +50,4 @@ class Regressor(nn.Module):
             if c.dim() == 1:
                 c = c[:, None]
             h = torch.cat([h, c.to(h.dtype)], dim=-1)
-        return self.out_net(h)
+        return self.out_net(h).float()

@@ -32,6 +32,13 @@ Submodules are named as the reference's torch ``state_dict``.
 
 Randomness: dropout masks and reparameterisation noise come from an explicit
 ``torch.Generator``, consumed in call order.
+
+Precision: ``compute_dtype`` is the activation policy of every conv and
+Linear (``models/layers.py``). The encoder heads return float32 under every
+policy, so PoE, reparameterisation and KL run in float32 (JAX vae.py:120-122).
+The CNN decoder's last transposed conv returns bf16 logits under
+``bfloat16_full`` and float32 otherwise (vae.py:163-170); the MLP decoder
+always returns float32 (:175).
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ import torch
 import torch.nn as nn
 
 from mmdyn_tpu_torch.config import DROPOUT_RATE
-from mmdyn_tpu_torch.models.layers import Mlp, Swish, TrainBatchNorm, dropout
+from mmdyn_tpu_torch.models.layers import (Conv2d, ConvTranspose2d, Linear, Mlp, Swish,
+                                           TrainBatchNorm, dropout)
 from mmdyn_tpu_torch.ops.poe import prior_expert, product_of_experts, reparametrize
 
 BOTTLENECK = (256, 5, 5)   # (C, H, W) between the conv trunks and the FCs
@@ -80,13 +88,14 @@ def condition_width(conditional, condition_dim):
     return condition_dim
 
 
-def conv_trunk():
+def conv_trunk(compute_dtype="float32"):
     """The DCGAN trunk of the encoders and the regressor, NCHW in and out."""
+    conv = lambda *a: Conv2d(*a, bias=False, compute_dtype=compute_dtype)  # noqa: E731
     return nn.Sequential(
-        nn.Conv2d(3, 32, 4, 2, 1, bias=False), Swish(),
-        nn.Conv2d(32, 64, 4, 2, 1, bias=False), TrainBatchNorm(64), Swish(),
-        nn.Conv2d(64, 128, 4, 2, 1, bias=False), TrainBatchNorm(128), Swish(),
-        nn.Conv2d(128, 256, 4, 1, 0, bias=False), TrainBatchNorm(256), Swish(),
+        conv(3, 32, 4, 2, 1), Swish(),
+        conv(32, 64, 4, 2, 1), TrainBatchNorm(64), Swish(),
+        conv(64, 128, 4, 2, 1), TrainBatchNorm(128), Swish(),
+        conv(128, 256, 4, 1, 0), TrainBatchNorm(256), Swish(),
     )
 
 
@@ -97,23 +106,25 @@ class Encoder(nn.Module):
                  input_dim: int = 784, layer_sizes: Sequence[int] = (256, 256),
                  conditional: bool = False, categorical_conditions: bool = False,
                  condition_dim: Optional[int] = None,
-                 dropout_rate: float = DROPOUT_RATE):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
         super().__init__()
         self.architecture = architecture
         self.dropout_rate = dropout_rate
         self.conditional = conditional
         self.categorical_conditions = categorical_conditions
         self.condition_dim = condition_dim
+        dt = compute_dtype
         if architecture == "cnn":
-            self.conv_net = conv_trunk()
-            self.fc_net = nn.Sequential(nn.Linear(math.prod(BOTTLENECK), 512), Swish())
+            self.conv_net = conv_trunk(dt)
+            self.fc_net = nn.Sequential(
+                Linear(math.prod(BOTTLENECK), 512, compute_dtype=dt), Swish())
             hidden = 512
         else:
-            self.fc_net = Mlp(input_dim, layer_sizes, "relu")
+            self.fc_net = Mlp(input_dim, layer_sizes, "relu", compute_dtype=dt)
             hidden = layer_sizes[-1]
         hidden += condition_width(conditional, condition_dim)
-        self.linear_means = nn.Linear(hidden, latent_size)
-        self.linear_log_var = nn.Linear(hidden, latent_size)
+        self.linear_means = Linear(hidden, latent_size, compute_dtype=dt)
+        self.linear_log_var = Linear(hidden, latent_size, compute_dtype=dt)
 
     def forward(self, x, c=None, generator=None):
         if self.architecture == "cnn":
@@ -124,7 +135,7 @@ class Encoder(nn.Module):
             h = self.fc_net(x.reshape(x.shape[0], -1))
         if self.conditional:   # after dropout, before the heads (vae.py:114-115)
             h = _concat_condition(h, c, self.categorical_conditions, self.condition_dim)
-        return self.linear_means(h), self.linear_log_var(h)
+        return self.linear_means(h).float(), self.linear_log_var(h).float()
 
 
 class Decoder(nn.Module):
@@ -140,30 +151,33 @@ class Decoder(nn.Module):
     def __init__(self, latent_size: int = 2, architecture: str = "cnn",
                  output_dim: int = 784, layer_sizes: Sequence[int] = (256, 256),
                  conditional: bool = False, categorical_conditions: bool = False,
-                 condition_dim: Optional[int] = None):
+                 condition_dim: Optional[int] = None, compute_dtype: str = "float32"):
         super().__init__()
         self.architecture = architecture
         self.conditional = conditional
         self.categorical_conditions = categorical_conditions
         self.condition_dim = condition_dim
+        dt = compute_dtype
         fan_in = latent_size + condition_width(conditional, condition_dim)
         if architecture == "cnn":
+            deconv = lambda *a: ConvTranspose2d(*a, bias=False, compute_dtype=dt)  # noqa: E731
             self.upsample = nn.Sequential(
-                nn.Linear(fan_in, math.prod(BOTTLENECK)), Swish())
+                Linear(fan_in, math.prod(BOTTLENECK), compute_dtype=dt), Swish())
             self.hallucinate = nn.Sequential(
-                nn.ConvTranspose2d(256, 128, 4, 1, 0, bias=False), TrainBatchNorm(128), Swish(),
-                nn.ConvTranspose2d(128, 64, 4, 2, 1, bias=False), TrainBatchNorm(64), Swish(),
-                nn.ConvTranspose2d(64, 32, 4, 2, 1, bias=False), TrainBatchNorm(32), Swish(),
-                nn.ConvTranspose2d(32, 3, 4, 2, 1, bias=False),
+                deconv(256, 128, 4, 1, 0), TrainBatchNorm(128), Swish(),
+                deconv(128, 64, 4, 2, 1), TrainBatchNorm(64), Swish(),
+                deconv(64, 32, 4, 2, 1), TrainBatchNorm(32), Swish(),
+                deconv(32, 3, 4, 2, 1),
             )
         else:
-            self.deconv_net = Mlp(fan_in, tuple(layer_sizes) + (output_dim,), "relu")
+            self.deconv_net = Mlp(fan_in, tuple(layer_sizes) + (output_dim,), "relu",
+                                  compute_dtype=dt)
 
     def forward(self, z, c=None):
         if self.conditional:   # before upsample / the MLP (vae.py:142-143)
             z = _concat_condition(z, c, self.categorical_conditions, self.condition_dim)
         if self.architecture != "cnn":
-            return self.deconv_net(z)
+            return self.deconv_net(z).float()
         lead = z.shape[:-1]
         groups = math.prod(lead[:-1])
         h = self.upsample(z.reshape(-1, z.shape[-1])).reshape(-1, *BOTTLENECK)
@@ -181,14 +195,14 @@ class VAE(nn.Module):
                  decoder_layer_sizes: Sequence[int] = (256, 256),
                  conditional: bool = False, categorical_conditions: bool = False,
                  condition_dim: Optional[int] = None,
-                 dropout_rate: float = DROPOUT_RATE):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
         super().__init__()
         self.latent_size = latent_size
         self.architecture = architecture
         self.input_dim = input_dim
         cond = dict(conditional=conditional,
                     categorical_conditions=categorical_conditions,
-                    condition_dim=condition_dim)
+                    condition_dim=condition_dim, compute_dtype=compute_dtype)
         self.encoder = Encoder(latent_size, architecture, input_dim,
                                encoder_layer_sizes, dropout_rate=dropout_rate, **cond)
         self.decoder = Decoder(latent_size, architecture, input_dim,
@@ -222,7 +236,7 @@ class MVAE(nn.Module):
     def __init__(self, latent_size: int = 256, use_pose: bool = False,
                  conditional: bool = False, categorical_conditions: bool = False,
                  condition_dim: Optional[int] = None, architecture: str = "cnn",
-                 dropout_rate: float = DROPOUT_RATE):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
         super().__init__()
         if architecture != "cnn":
             raise ValueError("MVAE is not implemented with MLP")
@@ -230,7 +244,7 @@ class MVAE(nn.Module):
         self.use_pose = use_pose
         img = dict(conditional=conditional,
                    categorical_conditions=categorical_conditions,
-                   condition_dim=condition_dim)
+                   condition_dim=condition_dim, compute_dtype=compute_dtype)
         self.visual_encoder = Encoder(latent_size, dropout_rate=dropout_rate, **img)
         self.visual_decoder = Decoder(latent_size, **img)
         self.tactile_encoder = Encoder(latent_size, dropout_rate=dropout_rate, **img)
@@ -238,9 +252,11 @@ class MVAE(nn.Module):
         if use_pose:
             # the pose pathway is an unconditional MLP pair (vae.py:117-123)
             self.pose_encoder = Encoder(latent_size, "mlp", input_dim=7,
-                                        layer_sizes=(512, 512))
+                                        layer_sizes=(512, 512),
+                                        compute_dtype=compute_dtype)
             self.pose_decoder = Decoder(latent_size, "mlp", output_dim=7,
-                                        layer_sizes=(512, 512))
+                                        layer_sizes=(512, 512),
+                                        compute_dtype=compute_dtype)
 
     # --- single-modality primitives used by the subset-ELBO ---
 

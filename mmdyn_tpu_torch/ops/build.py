@@ -96,8 +96,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "bce_sum":
         lib.bce_sum_num_partials.argtypes = [i64]
         lib.bce_sum_num_partials.restype = i32
-        lib.bce_sum_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
-        lib.bce_sum_f32.restype = i32
+        for fn in (lib.bce_sum_f32, lib.bce_sum_bf16):
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
+            fn.restype = i32
     else:
         raise ValueError(f"unknown kernel library {name!r}")
 

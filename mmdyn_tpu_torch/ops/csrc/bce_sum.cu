@@ -1,6 +1,6 @@
 // Sum-reduced BCE-with-logits of (K, B*P) logits against a (B*P) target
 // shared over the K subsets, with an optional (B*P) mask multiplying both
-// sides, f32 in and out:
+// sides; f32 or bf16 logits, f32 target, mask and sum, f32 math:
 //
 //   sum_{k,j} max(x, 0) - x * t + log1p(exp(-|x|)),
 //   x = logits[k, j] * m[j],  t = target[j] * m[j]
@@ -18,8 +18,18 @@
 //   pass 2: one block sums the partials in a fixed order.
 //
 // Bound by memory bytes: K*B*P logits + B*P target (+ B*P mask) read once.
+//
+// The logits' element type is a template parameter: float for the float32
+// and bfloat16 activation policies, __nv_bfloat16 for bfloat16_full, whose
+// decoders emit bf16 logits (the JAX package upcasts them inside its fused
+// reduce, mmdyn_tpu/ops/kernels.py::_bce_jnp). Both instantiations share the
+// grid, the block size, the partial count and the fixed-order second pass,
+// so either gives the same bits on every run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+extern "C" int bce_sum_num_partials(long long row);
 
 namespace {
 
@@ -49,7 +59,11 @@ __device__ __forceinline__ float bce(float x, float t) {
   return fmaxf(x, 0.0f) - x * t + log1pf(expf(-fabsf(x)));
 }
 
-__global__ void bce_partial_kernel(const float* __restrict__ logits,
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__global__ void bce_partial_kernel(const T* __restrict__ logits,
                                    const float* __restrict__ target,
                                    const float* __restrict__ mask,
                                    float* __restrict__ partials, int k_rows,
@@ -61,7 +75,7 @@ __global__ void bce_partial_kernel(const float* __restrict__ logits,
     const float m = mask != nullptr ? mask[j] : 1.0f;
     const float t = target[j] * m;
     for (int k = 0; k < k_rows; ++k) {
-      acc += bce(logits[k * row + j] * m, t);
+      acc += bce(to_float(logits[k * row + j]) * m, t);
     }
   }
   acc = block_sum(acc);
@@ -74,6 +88,18 @@ __global__ void bce_final_kernel(const float* __restrict__ partials,
   for (int i = threadIdx.x; i < n_partials; i += blockDim.x) acc += partials[i];
   acc = block_sum(acc);
   if (threadIdx.x == 0) out[0] = acc;
+}
+
+template <typename T>
+int bce_sum(const T* logits, const float* target, const float* mask, float* partials,
+            float* out, int k_rows, long long row, cudaStream_t stream) {
+  const int blocks = bce_sum_num_partials(row);
+  bce_partial_kernel<T><<<blocks, kThreads, 0, stream>>>(logits, target, mask,
+                                                         partials, k_rows, row);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bce_final_kernel<<<1, kThreads, 0, stream>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -91,11 +117,12 @@ extern "C" int bce_sum_num_partials(long long row) {
 extern "C" int bce_sum_f32(const float* logits, const float* target,
                            const float* mask, float* partials, float* out,
                            int k_rows, long long row, cudaStream_t stream) {
-  const int blocks = bce_sum_num_partials(row);
-  bce_partial_kernel<<<blocks, kThreads, 0, stream>>>(logits, target, mask,
-                                                      partials, k_rows, row);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bce_final_kernel<<<1, kThreads, 0, stream>>>(partials, blocks, out);
-  return (int)cudaGetLastError();
+  return bce_sum(logits, target, mask, partials, out, k_rows, row, stream);
+}
+
+// The same with bf16 logits.
+extern "C" int bce_sum_bf16(const __nv_bfloat16* logits, const float* target,
+                            const float* mask, float* partials, float* out,
+                            int k_rows, long long row, cudaStream_t stream) {
+  return bce_sum(logits, target, mask, partials, out, k_rows, row, stream);
 }

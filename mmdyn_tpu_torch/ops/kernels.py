@@ -30,13 +30,19 @@ against a (B, ...) target shared over K, optionally masked.
     fixed order: no float atomics, the same bits on every run. Each thread
     reads target[j] once for all K logits of column j, so the target is never
     broadcast.
+  * Logits are float32 or, under the ``bfloat16_full`` policy, bf16: a second
+    instantiation of the same kernel (``bce_sum_bf16``) reads them and does
+    all its math in float32, as ``_bce_jnp`` upcasts inside its reduce. Its
+    bound at K=4, B=512, P=12288 is 75.5 MB, 22.5 us. Target and mask are
+    float32 under every policy.
 
 Both backward passes are the analytic formulas of the JAX custom VJPs
 (``_bwd``, ``_bce_bwd``), written in torch ops, as the JAX package runs them
 in XLA rather than Pallas.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
-the kernel or raises. Each CUDA launch adds one to the wrapper's ``launches``.
+the kernel or raises. Each CUDA launch adds one to the wrapper's ``launches``;
+a ``bce_sum`` launch on bf16 logits also to ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -64,8 +70,10 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _require_cuda_f32(name: str, t: torch.Tensor, device) -> None:
-    _require(t.dtype == torch.float32, f"{name}: float32 expected, got {t.dtype}")
+def _require_cuda(name: str, t: torch.Tensor, device,
+                  dtypes=(torch.float32,)) -> None:
+    names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+    _require(t.dtype in dtypes, f"{name}: {names} expected, got {t.dtype}")
     _require(t.device == device, f"{name}: on {t.device}, expected {device}")
     _require(t.is_contiguous(), f"{name}: must be contiguous")
 
@@ -104,7 +112,7 @@ def _poe_reparam_cuda(mu, logvar, mask, noise):
     _require(noise.shape == (k, b, d), f"noise: {(k, b, d)} expected")
     for name, t in (("mu", mu), ("logvar", logvar), ("mask", mask),
                     ("noise", noise)):
-        _require_cuda_f32(name, t, mu.device)
+        _require_cuda(name, t, mu.device)
 
     z, pd_mu, pd_lv = (torch.empty((k, b, d), device=mu.device,
                                    dtype=torch.float32) for _ in range(3))
@@ -184,9 +192,10 @@ def _bce_sum_cuda(logits, target, mask):
              f"logits (K, *target.shape) expected, got {tuple(logits.shape)} "
              f"and target {tuple(target.shape)}")
     _require(mask is None or mask.shape == target.shape, "mask: must match target")
-    for name, t in (("logits", logits), ("target", target), ("mask", mask)):
+    _require_cuda("logits", logits, logits.device, (torch.float32, torch.bfloat16))
+    for name, t in (("target", target), ("mask", mask)):
         if t is not None:
-            _require_cuda_f32(name, t, logits.device)
+            _require_cuda(name, t, logits.device)
     k = logits.shape[0]
     row = target.numel()
 
@@ -195,12 +204,14 @@ def _bce_sum_cuda(logits, target, mask):
     scratch = torch.empty(n_partials + 1, device=logits.device,
                           dtype=torch.float32)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
-    build.check(lib.bce_sum_f32(
+    bf16 = logits.dtype == torch.bfloat16
+    build.check((lib.bce_sum_bf16 if bf16 else lib.bce_sum_f32)(
         logits.data_ptr(), target.data_ptr(),
         None if mask is None else mask.data_ptr(),
         scratch.data_ptr(), scratch[n_partials:].data_ptr(), k, row, stream),
         "bce_sum launch")
     fused_masked_bce_sum.launches += 1
+    fused_masked_bce_sum.launches_bf16 += bf16
     return scratch[n_partials]
 
 
@@ -231,11 +242,14 @@ class _BceSum(torch.autograd.Function):
 
 
 def fused_masked_bce_sum(logits, target, mask=None):
-    """Sum-reduced BCE-with-logits of (K, B, ...) logits against a shared
-    (B, ...) target, optionally masked by a (B, ...) ``mask`` that multiplies
-    both sides (problems.py:409-411 semantics). The CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors; differentiable in logits."""
+    """Sum-reduced BCE-with-logits of (K, B, ...) float32 or bf16 logits
+    against a shared float32 (B, ...) target, optionally masked by a
+    (B, ...) ``mask`` that multiplies both sides (problems.py:409-411
+    semantics); float32 math and result. The CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors; differentiable in logits, with the
+    cotangent in the logits' dtype."""
     return _BceSum.apply(logits, target, mask)
 
 
 fused_masked_bce_sum.launches = 0
+fused_masked_bce_sum.launches_bf16 = 0     # those of them with bf16 logits

@@ -61,6 +61,18 @@ class ProblemConfig:
         return "mvae" in self.model_name
 
 
+def select_compute_dtype(cfg: ProblemConfig, seq_length: int) -> str:
+    """Resolve the ``"auto"`` activation policy as the JAX package's rule
+    does off the TPU (``problems/base.py::select_compute_dtype``): its bf16
+    crossover by rows per step was measured on a TPU and applies there only,
+    so ``auto`` is ``float32`` on the card and on the CPU. ``seq_length`` is
+    the rule's other input, unused until a crossover measured on the card
+    takes its place. Explicit policies pass through."""
+    if cfg.compute_dtype != "auto":
+        return cfg.compute_dtype
+    return "float32"
+
+
 def anneal_kl(epoch: int, annealing_epochs: int) -> float:
     """kl_weight schedule (problems.py:212-216): linear warmup then 1."""
     if epoch < annealing_epochs:

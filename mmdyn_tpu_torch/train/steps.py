@@ -5,12 +5,15 @@ passed) and returns a step that moves the batch there, augments it when
 ``cfg.augment`` asks and the step trains, runs the family's loss forward and,
 for training, the backward and the optimizer update. Steps run
 eagerly; the model and optimizer live in the ``TrainState`` and update in
-place.
+place. With ``cfg.remat`` the train step keeps no activations of the loss
+forward and recomputes them in the backward, as the JAX step's
+``jax.checkpoint`` of the whole loss does (``mmdyn_tpu/train/steps.py:37-40``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mmdyn_tpu_torch.problems.base import ProblemConfig
 from mmdyn_tpu_torch.problems.specs import evaluate, parse_batch
@@ -35,6 +38,32 @@ def _loss_fn(model, cfg, batch, generator, kl_weight, train=False):
     return evaluate(cfg, model, generator, inputs, targets, kl_weight)
 
 
+def _loss_and_backward(model, cfg, batch, generator, kl_weight):
+    """The train loss forward and its backward; under ``cfg.remat`` the
+    forward runs in a checkpoint region, recomputed in the backward.
+
+    The checkpoint restores only the global generators, not the explicit
+    one every draw comes from. So the region starts by setting the
+    generator's state to its state on entry: the recompute redraws the
+    forward's dropout masks and noise. After the backward the generator is
+    set to where the forward left it, as it would be without remat."""
+    if not cfg.remat:
+        loss, aux = _loss_fn(model, cfg, batch, generator, kl_weight, True)
+        loss.backward()
+        return loss, aux
+    start = generator.get_state()
+
+    def run():
+        generator.set_state(start)
+        return _loss_fn(model, cfg, batch, generator, kl_weight, True)
+
+    loss, aux = checkpoint(run, use_reentrant=False, preserve_rng_state=False)
+    after = generator.get_state()
+    loss.backward()
+    generator.set_state(after)
+    return loss, aux
+
+
 def make_train_step(cfg: ProblemConfig, device=None):
     """Returns (state, batch, generator, kl_weight) -> (state, metrics).
 
@@ -52,8 +81,7 @@ def make_train_step(cfg: ProblemConfig, device=None):
         if torch.is_tensor(kl_weight):
             kl_weight = kl_weight.to(device=device, dtype=torch.float32)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = _loss_fn(state.model, cfg, batch, generator, kl_weight, True)
-        loss.backward()
+        loss, aux = _loss_and_backward(state.model, cfg, batch, generator, kl_weight)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(), **aux["perf_measure"]}

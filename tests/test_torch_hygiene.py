@@ -42,3 +42,27 @@ def test_no_source_names_jax_or_the_jax_package():
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(REPO)}: {hits}"
+
+
+_CLI_HELP = """
+import runpy, sys
+sys.argv = ["mmdyn_tpu_torch.cli.main", "--help"]
+try:
+    runpy.run_module("mmdyn_tpu_torch.cli.main", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_cli_help_loads_no_jax():
+    """``python -m mmdyn_tpu_torch.cli.main --help`` in a fresh interpreter
+    prints the training flags and loads neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _CLI_HELP], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--dataset-path" in out.stdout and "--bf16-full" in out.stdout
+    assert "LOADED []" in out.stdout

@@ -190,11 +190,16 @@ def test_setup_model_defaults_to_the_card(monkeypatch):
     ("mlp-vae", {"compute_dtype": "bfloat16"}),
 ])
 def test_setup_model_unported_raise(name, kwargs):
-    """The bf16 policies are the part of the factory not ported yet: every
-    family raises for both."""
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        setup_model(name, cross_modal=name == "cnn-mvae", device="cpu",
-                    latent_size=LATENT, **kwargs)
+    """Every family builds under both bf16 policies with float32 parameters
+    (the policies cast operands, not weights); a policy left unresolved
+    (``auto``) or unknown raises."""
+    kw = dict(kwargs) if name == "regressor" else dict(kwargs, latent_size=LATENT)
+    model = setup_model(name, cross_modal=name == "cnn-mvae", device="cpu", **kw)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    for bad in ("auto", "float16"):
+        with pytest.raises(ValueError, match="compute_dtype"):
+            setup_model(name, cross_modal=name == "cnn-mvae", device="cpu",
+                        **dict(kw, compute_dtype=bad))
 
 
 @pytest.mark.parametrize("name,kwargs,cls", [
