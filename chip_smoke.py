@@ -20,10 +20,13 @@ Phases, any failure raises and exits non-zero:
    library-call times (CUDA events, L2 flushed before every launch) beside
    the byte / operation bound of the H100 SXM (3.35 TB/s, 67 TFLOP/s f32),
    and the timer's floor: one launch of a one-float ``zero_()``. The bf16
-   instantiation of BCE (bf16 logits, f32 target and mask) the same way at
-   the main and dyn shapes, masked and not (rel 1e-5, bit-identical reruns),
-   its library call ``F.binary_cross_entropy_with_logits`` on the upcast
-   logits.
+   BCE kernel (bf16 logits, f32 target and mask) the same way, masked and
+   not (rel 1e-5, bit-identical reruns), at the main and dyn shapes (timed,
+   beside the f32 kernel's readings; its library call
+   ``F.binary_cross_entropy_with_logits`` on the upcast logits), and on the
+   inputs of its scalar-load path (K=3, B=3, P=7; B=5, P=12287; logits one
+   element off 16-byte alignment, timed) and adversarial values (|x| up to
+   90, exact zeros, a fully masked row).
 4. Train steps on the card against the same steps on the CPU (same weights,
    no dropout, loss rel 1e-4 over two steps): the seq flagship at batch 32;
    dyn_modeling at 8 x 4 with ``mask_loss`` (the masked BCE kernel inside a
@@ -53,7 +56,7 @@ Phases, any failure raises and exits non-zero:
        launch (its loss has no kernel in the JAX package either);
    (d) the seq flagship under ``bfloat16_full`` (``bench.py``'s policy):
        5 steps and 3 profiled, 2 BCE launches a step on bf16 logits;
-   (e) dyn_modeling 256 x 8 under ``bfloat16_full``: 5 steps;
+   (e) dyn_modeling 256 x 8 under ``bfloat16_full``: 5 steps and 2 profiled;
    ms/step and frames/s of each (frames: B rows per step, B * T for dyn);
    (f) the training CLI in process (``cli.main.main``): a 2,600-sequence x
        2-frame corpus written once by the port's ``make_compiled_arrays``
@@ -295,20 +298,53 @@ def check_bce(kernels, timer, dev, k=4, b=512, p=64 * 64 * 3, dyn_rows=2048):
     return entry
 
 
-def check_bce_bf16(kernels, timer, dev, k=4, b=512, p=64 * 64 * 3, dyn_rows=2048):
-    """The bf16-logit instantiation against the plain version on the same
-    bf16 logits (f32 target and mask), masked and not, at the main and dyn
-    shapes, with bit-identical reruns; timed unmasked, as ``bfloat16_full``
-    runs it, beside its byte bound and the library call on the upcast
-    logits."""
+def bf16_cases(g, dev, k, b, p, dyn_rows):
+    """(name, logits, target, mask) of the bf16 check: the main and dyn
+    shapes; shapes and views that take the scalar-load path (K=3, B=3, P=7;
+    a row that is not a multiple of 8; logits one element off 16-byte
+    alignment); and adversarial values on the 16-byte path: |x| up to 90 (exp
+    underflows), exact zeros, 0/1 targets, a fully masked row."""
+    def normal(kk, bb, pp, offset=0):
+        flat = torch.randn(kk * bb * pp + offset, generator=g, device=dev) * 3
+        x = flat.to(torch.bfloat16)[offset:].view(kk, bb, pp)
+        z = torch.rand((bb, pp), generator=g, device=dev)
+        mask = (torch.rand((bb, pp), generator=g, device=dev) > 0.3).float()
+        return x, z, mask
+
+    yield ("main", *normal(k, b, p))
+    yield ("dyn", *normal(k, dyn_rows, p))
+    yield ("ragged", *normal(3, 3, 7))
+    yield ("row%8=3", *normal(k, 5, p - 1))
+    x, z, mask = normal(k, b, p, offset=1)
+    if x.data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned case is aligned")
+    yield ("misaligned", x, z, mask)
+    bb = 16
+    u = lambda *s: torch.rand(s, generator=g, device=dev)  # noqa: E731
+    x = (u(k, bb, p) * 180 - 90) * (u(k, bb, p) > 0.2)       # 20% exact zeros
+    z = torch.where(u(bb, p) > 0.5, (u(bb, p) > 0.5).float(), u(bb, p))
+    mask = (u(bb, p) > 0.3).float()
+    mask[0] = 0.0                                            # a fully masked row
+    yield ("adversarial", x.to(torch.bfloat16), z, mask)
+
+
+def check_bce_bf16(kernels, timer, dev, f32, k=4, b=512, p=64 * 64 * 3, dyn_rows=2048):
+    """The bf16-logit kernel against the plain version on the same bf16
+    logits (f32 target and mask), masked and not, on every case of
+    ``bf16_cases``, with bit-identical reruns; timed unmasked at the main and
+    dyn shapes, as ``bfloat16_full`` runs it, beside its byte bound, the
+    library call on the upcast logits and the f32 kernel's readings
+    (``f32``: ``check_bce``'s entry)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(3)
     worst_rel, timed = 0.0, {}
-    for name, bb in (("main", b), ("dyn", dyn_rows)):
-        x = (torch.randn((k, bb, p), generator=g, device=dev) * 3).to(torch.bfloat16)
-        z = torch.rand((bb, p), generator=g, device=dev)
-        mask = (torch.rand((bb, p), generator=g, device=dev) > 0.3).float()
+    names = []
+    for name, x, z, mask in bf16_cases(g, dev, k, b, p, dyn_rows):
+        names.append(name)
+        vector = z.numel() % 8 == 0 and x.data_ptr() % 16 == 0
+        if vector != (name in ("main", "dyn", "adversarial")):
+            raise AssertionError(f"bce_sum bf16 {name}: 16-byte path {vector}")
         for m in (None, mask):
             got = kernels._bce_sum_cuda(x, z, m)
             again = kernels._bce_sum_cuda(x, z, m)
@@ -321,25 +357,36 @@ def check_bce_bf16(kernels, timer, dev, k=4, b=512, p=64 * 64 * 3, dyn_rows=2048
                 raise AssertionError(f"bce_sum bf16 {name} mask={m is not None}: "
                                      f"{float(got)!r} vs plain {float(want)!r}")
             worst_rel = max(worst_rel, rel)
-            if m is None:
+            if name in ("main", "dyn") and m is None:
                 bytes_moved = x.numel() * 2 + z.numel() * 4 + 4
                 bound_ms, bound_by = bound(bytes_moved, 8 * x.numel())
                 timed[name] = {
-                    "shape": f"K={k} B={bb} P={p} bf16",
+                    "shape": f"K={x.shape[0]} B={x.shape[1]} P={x.shape[2]} bf16",
                     "max_abs_err": abs(float(got) - float(want)),
                     "ms": timer(lambda: kernels._bce_sum_cuda(x, z, None)),
                     "plain_ms": timer(lambda: kernels.bce_sum_plain(x, z, None)),
                     "library_ms": timer(lambda: F.binary_cross_entropy_with_logits(
                         x.float(), z.expand_as(x), reduction="sum")),
-                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved}
-        timed[name]["masked_ms"] = timer(lambda: kernels._bce_sum_cuda(x, z, mask))
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
+                    "masked_ms": timer(lambda: kernels._bce_sum_cuda(x, z, mask)),
+                    "masked_bound_ms": bound(bytes_moved + z.numel() * 4, 0)[0]}
+            if name == "misaligned" and m is None:
+                scalar_ms = timer(lambda: kernels._bce_sum_cuda(x, z, None))
         del x, z, mask
-    say(f"[3/6] bce_sum bf16 logits ok (main, dyn; mask and none; bit-identical reruns): "
-        f"max rel err {worst_rel:.3g}" + "".join(
-            f"; {t['shape']}: {t['ms']:.4f} ms (masked {t['masked_ms']:.4f}) vs plain "
-            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bytes'] / 1e6:.1f} MB)" for t in timed.values()))
-    return {**timed["main"], "dyn": timed["dyn"]}
+    f32s = {"main": f32, "dyn": f32["dyn"]}
+    say(f"[3/6] bce_sum bf16 logits ok ({', '.join(names)}; mask and none; bit-identical "
+        f"reruns): max rel err {worst_rel:.3g}" + "".join(
+            f"; {t['shape']}: {t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.0%} of bound "
+            f"{t['bound_ms']:.4f} ms, {t['bytes'] / 1e6:.1f} MB), masked "
+            f"{t['masked_ms']:.4f} ms ({t['masked_bound_ms'] / t['masked_ms']:.0%}) vs plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms; f32 logits "
+            f"{f32s[n]['ms']:.4f} ms, masked {f32s[n]['masked_ms']:.4f} ms"
+            for n, t in timed.items())
+        + f"; the scalar-load path on the misaligned main shape {scalar_ms:.4f} ms")
+    return {"name": "bce_sum_bf16", "route": "cuda",
+            "source": "mmdyn_tpu_torch/ops/csrc/bce_sum.cu", "replaces": BCE_REPLACES,
+            **timed["main"], "dyn": timed["dyn"],
+            "misaligned_ms": scalar_ms}
 
 
 def reset_counters(kernels):
@@ -506,7 +553,7 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     out = {"step_ms": step_s * 1e3, "frames_per_s": frames / step_s,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches, "launches_per_step": per_step}
+           "launches": launches}
     if profile_steps:
         out.update(profile(step, state, batch, gen, kl, steps=profile_steps, top=top))
     del state, batch
@@ -759,7 +806,7 @@ def main():
     dev = torch.device("cuda")
     timer = Timer(dev)
     entries = [check_poe(kernels, recon, timer, dev), check_bce(kernels, timer, dev)]
-    entries[1]["bf16"] = check_bce_bf16(kernels, timer, dev)
+    entries.append(check_bce_bf16(kernels, timer, dev, entries[1]))
     one = torch.zeros(1, device=dev)
     say(f"[3/6] timer floor: a one-float zero_() reads {timer(one.zero_):.5f} ms "
         f"(the event pair and one launch)")
@@ -801,20 +848,17 @@ def main():
             flag, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step,
             profile_steps=3),
         "dyn_bf16_full": run_path("(e) dyn_modeling", dataclasses.replace(
-            dyn, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step, seq_len=8),
+            dyn, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step, seq_len=8,
+            profile_steps=2, top=25),
     }
     cli = cli_path(kernels, card, paths["seq_modeling"]["frames_per_s"])
 
     for e in entries:
-        e["launches"] = paths["seq_modeling"]["launches"][e["name"]]
+        # the bf16 kernel's main path is (d), the others' (a)
+        main = "seq_bf16_full" if e["name"] == "bce_sum_bf16" else "seq_modeling"
+        e["launches"] = paths[main]["launches"][e["name"]]
         e["launches_by_path"] = {name: p["launches"][e["name"]] for name, p in paths.items()}
         e["launches_by_path"]["cli"] = cli["launches"][e["name"]]
-        e["launches_per_step"] = {name: p["launches_per_step"][e["name"]]
-                                  for name, p in paths.items()}
-    bf16 = entries[1]["bf16"]
-    bf16.update(launches=paths["seq_bf16_full"]["launches"]["bce_sum_bf16"],
-                launches_by_path={name: p["launches"]["bce_sum_bf16"]
-                                  for name, p in paths.items()})
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
     say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (

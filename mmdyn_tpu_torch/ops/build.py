@@ -94,8 +94,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                         i32, i32, i64, f32, ptr]
         lib.poe_reparam_f32.restype = i32
     elif name == "bce_sum":
-        lib.bce_sum_num_partials.argtypes = [i64]
-        lib.bce_sum_num_partials.restype = i32
+        for fn in (lib.bce_sum_num_partials, lib.bce_sum_bf16_num_partials):
+            fn.argtypes = [i64]
+            fn.restype = i32
         for fn in (lib.bce_sum_f32, lib.bce_sum_bf16):
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
             fn.restype = i32

@@ -164,16 +164,39 @@ def test_bf16_full_tracks_f32():
 
 # --- the bf16-logit BCE ----------------------------------------------------------
 
+def _bce_bf16_inputs(values, with_mask):
+    """(K, B, H, W, C) logits, target and mask (or None). ``normal``: logits
+    N(0, 3); ``adversarial``: N(0, 3) with 10% saturated logits, |x| up to 90
+    (exp(-|x|) underflows), 20% exact zeros, half the targets 0 or 1, and
+    under a mask a fully masked row."""
+    rng = np.random.default_rng(11)
+    shape = (4, 3, 8, 8, 3)
+    if values == "normal":
+        logits = rng.normal(size=shape).astype(np.float32) * 3
+        target = rng.uniform(size=shape[1:]).astype(np.float32)
+    else:
+        logits = rng.normal(size=shape) * 3
+        saturated = rng.uniform(size=shape) < 0.1
+        logits = np.where(saturated, rng.uniform(-90, 90, size=shape), logits)
+        logits = (logits * (rng.uniform(size=shape) > 0.2)).astype(np.float32)
+        u = rng.uniform(size=(3,) + shape[1:])
+        target = np.where(u[0] > 0.5, u[1] > 0.5, u[2]).astype(np.float32)
+    mask = (rng.uniform(size=target.shape) > 0.3).astype(np.float32) if with_mask else None
+    if mask is not None and values == "adversarial":
+        mask[0] = 0.0
+    return logits, target, mask
+
+
+@pytest.mark.parametrize("values", ["normal", "adversarial"])
 @pytest.mark.parametrize("with_mask", [False, True])
-def test_bce_sum_bf16_logits_match_jax(with_mask):
+def test_bce_sum_bf16_logits_match_jax(with_mask, values):
     """bf16 logits, float32 target and mask: the plain version and the
     wrapper against ``_bce_jnp`` on the same bf16 logits (rel 1e-6; both
-    upcast before any arithmetic), and the backward against ``_bce_bwd``:
-    a bf16 cotangent, as the logits."""
-    rng = np.random.default_rng(11)
-    logits = rng.normal(size=(4, 3, 8, 8, 3)).astype(np.float32) * 3
-    target = rng.uniform(size=(3, 8, 8, 3)).astype(np.float32)
-    mask = (rng.uniform(size=target.shape) > 0.3).astype(np.float32) if with_mask else None
+    upcast before any arithmetic) and against the same sum in float64 (rel
+    1e-6: XLA's own float32 sum of the adversarial set lies up to 1.3e-6
+    from it over other seeds, the port's under 2e-7), and the backward
+    against ``_bce_bwd``: a bf16 cotangent, as the logits."""
+    logits, target, mask = _bce_bf16_inputs(values, with_mask)
     jlogits = jnp.asarray(logits, jnp.bfloat16)
     tlogits = torch.tensor(logits).to(torch.bfloat16)
     np.testing.assert_array_equal(np.asarray(jlogits.astype(jnp.float32)),
@@ -181,10 +204,15 @@ def test_bce_sum_bf16_logits_match_jax(with_mask):
     jm = None if mask is None else jnp.asarray(mask)
     tm = None if mask is None else torch.tensor(mask)
     want = jk._bce_jnp(jlogits, jnp.asarray(target), jm)
+    x64 = tlogits.double().numpy() * (1.0 if mask is None else mask[None])
+    z64 = target.astype(np.float64) * (1.0 if mask is None else mask)
+    exact = (np.sum(np.maximum(x64, 0.0) + np.log1p(np.exp(-np.abs(x64))))
+             - np.sum(z64 * x64.sum(axis=0)))
     for fn in (tk.bce_sum_plain, tk.fused_masked_bce_sum):
         got = fn(tlogits, torch.tensor(target), tm)
         assert got.dtype == torch.float32
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+        np.testing.assert_allclose(float(got), exact, rtol=1e-6)
 
     g = 0.37
     want_d, _, _ = jk._bce_bwd((jlogits, jnp.asarray(target), jm), jnp.float32(g))
@@ -197,13 +225,16 @@ def test_bce_sum_bf16_logits_match_jax(with_mask):
 
 def test_bce_sum_cuda_accepts_bf16_logits_only_besides_f32():
     """The wrapper's checks, before any build: bf16 and float32 logits pass
-    (here to a missing device), float16 logits and a bf16 target do not."""
+    (here to a missing device), float16 logits, a bf16 target and more bf16
+    rows than the kernel's 7 subsets do not."""
     x = torch.zeros((2, 3, 4), dtype=torch.float16)
     z = torch.zeros((3, 4))
     with pytest.raises(ValueError, match="logits: float32 or bfloat16 expected"):
         tk._bce_sum_cuda(x, z, None)
     with pytest.raises(ValueError, match="target: float32 expected"):
         tk._bce_sum_cuda(x.to(torch.bfloat16), z.to(torch.bfloat16), None)
+    with pytest.raises(ValueError, match="bf16 logits: 1 to 7 rows, got 8"):
+        tk._bce_sum_cuda(torch.zeros((8, 3, 4), dtype=torch.bfloat16), z, None)
 
 
 # --- the auto policy -------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The port stands alone: ``mmdyn_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package."""
+"""The port stands alone: ``mmdyn_tpu_torch``, ``chip_smoke.py`` and the
+kernel bench ``tools/bce_bf16_bench.py`` import neither JAX nor the JAX
+package."""
 
 import re
 import subprocess
@@ -37,7 +38,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|opta
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tools" / "bce_bf16_bench.py"]
     assert len(files) > 20
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
