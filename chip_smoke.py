@@ -73,6 +73,23 @@ Phases, any failure raises and exits non-zero:
        run continued with ``--resume`` to 2, whose parameters must equal the
        uninterrupted ones bit for bit. Then ``cli.evaluate.main`` on the run
        when Pillow imports.
+   (g) serving (``mmdyn_tpu_torch.serve``) of (f)'s first run, no kernel
+       launch (the JAX session has no kernel on this path either), no
+       Pillow: ``InferenceSession.from_run`` on the card against the same
+       run on the CPU at batch 32 (probabilities atol 1e-4; mu, logvar and
+       pose max gap over max |cpu| 1e-4; uint8 images at most 1 apart on at
+       most 0.1% of pixels); ``predict(uint8_images=True)`` eager and as the
+       ``aot_predict`` CUDA graph at batches 1, 8, 64, 256 and 1024, round
+       trip (host arrays to host arrays) and pipelined (device inputs, one
+       synchronise), the graph equal to eager bit for bit; a parity
+       session's graph with live dropout; ``rollout`` of 16 steps at batch
+       64; ``freeze_bn`` on 256 rows, a row served alone (padded to 64)
+       equal to the same row inside a batch of 64 bit for bit;
+       ``export_session`` / ``load_exported`` at batch 64 (atol 1e-5); the
+       HTTP server on port 0 (/healthz, /predict at batch 1 and 64 timed,
+       /rollout, /sample, and 8 concurrent clients through the micro-batcher
+       on the frozen session, equal to their solo replies bit for bit); and
+       ``cli.infer --export``.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -86,6 +103,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -676,108 +694,453 @@ def check_restore(problem):
     return len(want)
 
 
-def cli_path(kernels, card, bare_frames_per_s):
-    """(f): the training CLI in process on a corpus written for it, then the
-    determinism probe and a second uninterrupted run with torch's default
-    cuDNN algorithms; with deterministic ones, an uninterrupted run, the
-    probe again, a 1-epoch run whose checkpoint is restored and compared, and
-    its ``--resume`` to epoch 2; then the evaluation CLI."""
+def cli_path(kernels, card, bare_frames_per_s, tmp):
+    """(f): the training CLI in process on a corpus written for it under
+    ``tmp``, then the determinism probe and a second uninterrupted run with
+    torch's default cuDNN algorithms; with deterministic ones, an
+    uninterrupted run, the probe again, a 1-epoch run whose checkpoint is
+    restored and compared, and its ``--resume`` to epoch 2; then the
+    evaluation CLI. The first run, ``tmp / "run"``, is the one (g) serves."""
     import importlib.util
-    import tempfile
 
     from mmdyn_tpu_torch.cli import evaluate as cli_evaluate
     from mmdyn_tpu_torch.cli import main as cli_main
     from mmdyn_tpu_torch.data.compile import COMPILED_NAME
     from mmdyn_tpu_torch.data.synthetic import make_compiled_arrays
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        make_compiled_arrays(tmp / "ds" / COMPILED_NAME, n_sequences=2600, seq_length=2,
-                             seed=0, packed_dir=True)
-        corpus_s = time.perf_counter() - t0
-        argv = ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
-                "--input-type", "visuotactile", "--use-pose", "--dataset-path",
-                str(tmp / "ds"), "--batchsize", "512", "--dtype", "auto",
-                "--no-tensorboard", "--logs-root", str(tmp / "logs")]
-        reset_counters(kernels)
-        t0 = time.perf_counter()
-        run = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "run")])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = read_counters(kernels)
-        logs = run._logger_dict
-        losses = logs["Loss/train_epoch"] + logs["Loss/validation_epoch"]
-        shape = (run.cfg.compute_dtype, len(run.train_loader), len(run.test_loader))
-        if shape != ("float32", 4, 1):
-            raise AssertionError(f"(f): (policy, train batches, test batches) {shape}")
-        # 2 epochs x (4 train + 1 validation) forwards
-        if launches != {"poe_reparam": 10, "bce_sum": 20, "bce_sum_bf16": 0}:
-            raise AssertionError(f"(f): kernel launches {launches} over 2 epochs")
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"(f): losses not finite: {losses}")
-        fps = logs["Perf/frames_per_sec"]
-        say(f"[5/6] (f) cli.main: cnn-mvae visuotactile+pose seq_modeling, batch 512, "
-            f"--dtype auto -> {run.cfg.compute_dtype}, 2 epochs of 4 steps + 1 validation "
-            f"batch on {card}: {wall_s:.2f} s (corpus written in {corpus_s:.2f} s); "
-            f"loop frames/s by epoch {fps} against (a)'s bare step "
-            f"{bare_frames_per_s:.1f} ({fps[-1] / bare_frames_per_s:.1%}); train losses "
-            f"{logs['Loss/train_epoch']}, validation {logs['Loss/validation_epoch']}; "
-            f"launches {launches}")
+    t0 = time.perf_counter()
+    make_compiled_arrays(tmp / "ds" / COMPILED_NAME, n_sequences=2600, seq_length=2,
+                         seed=0, packed_dir=True)
+    corpus_s = time.perf_counter() - t0
+    argv = ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
+            "--input-type", "visuotactile", "--use-pose", "--dataset-path",
+            str(tmp / "ds"), "--batchsize", "512", "--dtype", "auto",
+            "--no-tensorboard", "--logs-root", str(tmp / "logs")]
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    run = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "run")])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters(kernels)
+    logs = run._logger_dict
+    losses = logs["Loss/train_epoch"] + logs["Loss/validation_epoch"]
+    shape = (run.cfg.compute_dtype, len(run.train_loader), len(run.test_loader))
+    if shape != ("float32", 4, 1):
+        raise AssertionError(f"(f): (policy, train batches, test batches) {shape}")
+    # 2 epochs x (4 train + 1 validation) forwards
+    if launches != {"poe_reparam": 10, "bce_sum": 20, "bce_sum_bf16": 0}:
+        raise AssertionError(f"(f): kernel launches {launches} over 2 epochs")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"(f): losses not finite: {losses}")
+    fps = logs["Perf/frames_per_sec"]
+    say(f"[5/6] (f) cli.main: cnn-mvae visuotactile+pose seq_modeling, batch 512, "
+        f"--dtype auto -> {run.cfg.compute_dtype}, 2 epochs of 4 steps + 1 validation "
+        f"batch on {card}: {wall_s:.2f} s (corpus written in {corpus_s:.2f} s); "
+        f"loop frames/s by epoch {fps} against (a)'s bare step "
+        f"{bare_frames_per_s:.1f} ({fps[-1] / bare_frames_per_s:.1%}); train losses "
+        f"{logs['Loss/train_epoch']}, validation {logs['Loss/validation_epoch']}; "
+        f"launches {launches}")
 
-        final = copy.deepcopy(run.state.model)
-        step_diff, differing = step_rerun_diff(run)
-        again = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "again")])
-        rerun_diff = max_param_diff(final, again.state.model)
-        deterministic = step_diff == 0.0 and rerun_diff == 0.0
-        say(f"[5/6] (f) determinism, torch's default cuDNN algorithms: one step run twice "
-            f"from one state differs by {step_diff!r} (max |param|), two uninterrupted "
-            f"2-epoch runs by {rerun_diff!r}: the card step is "
-            f"{'deterministic' if deterministic else 'NOT run-to-run deterministic'}; after "
-            f"one step {len(differing)} parameters differ: {differing}")
+    final = copy.deepcopy(run.state.model)
+    step_diff, differing = step_rerun_diff(run)
+    again = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "again")])
+    rerun_diff = max_param_diff(final, again.state.model)
+    deterministic = step_diff == 0.0 and rerun_diff == 0.0
+    say(f"[5/6] (f) determinism, torch's default cuDNN algorithms: one step run twice "
+        f"from one state differs by {step_diff!r} (max |param|), two uninterrupted "
+        f"2-epoch runs by {rerun_diff!r}: the card step is "
+        f"{'deterministic' if deterministic else 'NOT run-to-run deterministic'}; after "
+        f"one step {len(differing)} parameters differ: {differing}")
 
-        # A rerun's spread is as large as what a resume that lost Adam's or the
-        # generator's state would show, so the resume is held bit for bit, with
-        # cuDNN's deterministic algorithms for these three runs only.
-        with deterministic_cudnn():
-            full = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "det")])
-            det_final = copy.deepcopy(full.state.model)
-            det_step_diff, det_differing = step_rerun_diff(full)
-            first = cli_main.main(argv + ["--num-epochs", "1", "--log-dir",
-                                          str(tmp / "resumed")])
-            n_restored = check_restore(first)
-            resumed = cli_main.main(argv + ["--num-epochs", "2", "--log-dir",
-                                            str(tmp / "resumed"), "--resume"])
-        resume_diff = max_param_diff(det_final, resumed.state.model)
-        det_fps = full._logger_dict["Perf/frames_per_sec"]
-        say(f"[5/6] (f) resume, cuDNN deterministic algorithms: one step run twice differs "
-            f"by {det_step_diff!r} ({len(det_differing)} parameters); the 1-epoch run's "
-            f"'latest' restored into a fresh state on the card equals the run's state bit "
-            f"for bit ({n_restored} tensors: parameters, Adam moments and step counts; the "
-            f"step, the epoch and the generator's state); 1 epoch + --resume to 2 vs "
-            f"uninterrupted: {resume_diff!r}; loop frames/s by epoch {det_fps} (default "
-            f"algorithms {fps})")
-        if det_step_diff != 0.0 or resume_diff != 0.0:
-            raise AssertionError(f"(f): with deterministic cuDNN one step reruns to "
-                                 f"{det_step_diff!r} and the resumed run differs by "
-                                 f"{resume_diff!r} from the uninterrupted one; both must be 0")
+    # A rerun's spread is as large as what a resume that lost Adam's or the
+    # generator's state would show, so the resume is held bit for bit, with
+    # cuDNN's deterministic algorithms for these three runs only.
+    with deterministic_cudnn():
+        full = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "det")])
+        det_final = copy.deepcopy(full.state.model)
+        det_step_diff, det_differing = step_rerun_diff(full)
+        first = cli_main.main(argv + ["--num-epochs", "1", "--log-dir",
+                                      str(tmp / "resumed")])
+        n_restored = check_restore(first)
+        resumed = cli_main.main(argv + ["--num-epochs", "2", "--log-dir",
+                                        str(tmp / "resumed"), "--resume"])
+    resume_diff = max_param_diff(det_final, resumed.state.model)
+    det_fps = full._logger_dict["Perf/frames_per_sec"]
+    say(f"[5/6] (f) resume, cuDNN deterministic algorithms: one step run twice differs "
+        f"by {det_step_diff!r} ({len(det_differing)} parameters); the 1-epoch run's "
+        f"'latest' restored into a fresh state on the card equals the run's state bit "
+        f"for bit ({n_restored} tensors: parameters, Adam moments and step counts; the "
+        f"step, the epoch and the generator's state); 1 epoch + --resume to 2 vs "
+        f"uninterrupted: {resume_diff!r}; loop frames/s by epoch {det_fps} (default "
+        f"algorithms {fps})")
+    if det_step_diff != 0.0 or resume_diff != 0.0:
+        raise AssertionError(f"(f): with deterministic cuDNN one step reruns to "
+                             f"{det_step_diff!r} and the resumed run differs by "
+                             f"{resume_diff!r} from the uninterrupted one; both must be 0")
 
-        if importlib.util.find_spec("PIL") is None:
-            say("[5/6] (f) cli.evaluate: Pillow does not import here, so the evaluation "
-                "CLI (PNG grids) is covered by the CPU tests only")
-        else:
-            metrics = cli_evaluate.main(["--run", str(tmp / "run"), "--batchsize", "512"])
-            plots = sorted(p.name for p in (tmp / "run" / "plot").iterdir())
-            if not math.isfinite(metrics["test_loss_total"]) or "recon_visual.png" not in plots:
-                raise AssertionError(f"(f) evaluate: {metrics}, {plots}")
-            say(f"[5/6] (f) cli.evaluate: test loss {metrics['test_loss_total']!r}; "
-                f"wrote {plots}")
-        del run, again, full, first, resumed, final, det_final
+    if importlib.util.find_spec("PIL") is None:
+        say("[5/6] (f) cli.evaluate: Pillow does not import here, so the evaluation "
+            "CLI (PNG grids) is covered by the CPU tests only")
+    else:
+        metrics = cli_evaluate.main(["--run", str(tmp / "run"), "--batchsize", "512"])
+        plots = sorted(p.name for p in (tmp / "run" / "plot").iterdir())
+        if not math.isfinite(metrics["test_loss_total"]) or "recon_visual.png" not in plots:
+            raise AssertionError(f"(f) evaluate: {metrics}, {plots}")
+        say(f"[5/6] (f) cli.evaluate: test loss {metrics['test_loss_total']!r}; "
+            f"wrote {plots}")
+    del run, again, full, first, resumed, final, det_final
     torch.cuda.empty_cache()
     return {"frames_per_s": fps, "launches": launches, "step_rerun_diff": step_diff,
             "rerun_diff": rerun_diff, "deterministic": deterministic,
             "det_step_rerun_diff": det_step_diff, "det_resume_diff": resume_diff,
             "det_frames_per_s": det_fps}
+
+
+def serving_inputs(b, seed=5):
+    """A seeded serving batch: uniform visual and tactile images in [0, 1]
+    and a uniform normalised pose, float32 NHWC."""
+    rng = np.random.default_rng(seed)
+    return {"visual": rng.uniform(size=(b, 64, 64, 3)).astype(np.float32),
+            "tactile": rng.uniform(size=(b, 64, 64, 3)).astype(np.float32),
+            "pose": rng.uniform(size=(b, 7)).astype(np.float32)}
+
+
+def host(out):
+    """Tensors of a prediction on the host, as numpy (the readback syncs)."""
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def mean_ms(fn, reps, warm=2):
+    """Host ms per call of ``fn`` over ``reps`` calls after ``warm``, the
+    device synchronised before and after."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_card_vs_cpu_serving(session, cpu, x):
+    """(g) 1: the card's and the CPU's predictions of one batch: probabilities
+    atol 1e-4; mu, logvar and pose max |card - cpu| / max |cpu| <= 1e-4;
+    uint8 images differ by at most 1 on at most 0.1% of pixels."""
+    card, ref = host(session.predict(**x)), host(cpu.predict(**x))
+    worst = {}
+    for k, want in ref.items():
+        err = float(np.abs(card[k] - want).max())
+        if k in ("visual", "tactile"):
+            worst[k] = err
+            ok = err <= 1e-4
+        else:
+            worst[k] = err / float(np.abs(want).max())
+            ok = worst[k] <= 1e-4
+        if not ok:
+            raise AssertionError(f"(g) card vs cpu {k}: {worst[k]!r}")
+    q_card = host(session.predict(**x, uint8_images=True))
+    q_cpu = host(cpu.predict(**x, uint8_images=True))
+    for k in ("visual", "tactile"):
+        diff = np.abs(q_card[k].astype(np.int16) - q_cpu[k].astype(np.int16))
+        worst[f"{k}_uint8_max"] = int(diff.max())
+        worst[f"{k}_uint8_share"] = float((diff > 0).mean())
+        if diff.max() > 1 or (diff > 0).mean() > 1e-3:
+            raise AssertionError(f"(g) card vs cpu uint8 {k}: max {diff.max()}, "
+                                 f"share {(diff > 0).mean()}")
+    return worst
+
+
+def time_predict(session, x, batches=(1, 8, 64, 256, 1024)):
+    """(g) 2: ``predict(uint8_images=True)`` eager and through
+    ``aot_predict`` (a CUDA graph) at each batch. Round trip: host arrays to
+    host arrays, copies included. Pipelined: calls on device-resident inputs
+    with no readback, one synchronise at the end: the device time per call a
+    saturated loop sees. The graph's outputs must equal the eager ones bit
+    for bit."""
+    mods = tuple(sorted(x))
+    table = []
+    for b in batches:
+        xb = {k: v[:b] for k, v in x.items()}
+        xd = {k: torch.as_tensor(v, device=session.device) for k, v in xb.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        graph = session.aot_predict(b, mods, uint8_images=True)
+        eager_out = host(session.predict(**xb, uint8_images=True))
+        graph_out = host(graph(xb))
+        differ = [k for k in eager_out if not np.array_equal(eager_out[k], graph_out[k])]
+        if differ:
+            raise AssertionError(f"(g) batch {b}: graph != eager in {differ}")
+        reps = 20 if b <= 64 else 8
+        row = {
+            "batch": b,
+            "eager_rt_ms": mean_ms(lambda: host(session.predict(**xb, uint8_images=True)), reps),
+            "graph_rt_ms": mean_ms(lambda: host(graph(xb)), reps),
+            "eager_pipe_ms": mean_ms(lambda: session.predict(**xd, uint8_images=True), reps),
+            "graph_pipe_ms": mean_ms(lambda: graph(xd), reps),
+        }
+        row.update({f"{k[:-3]}_frames_per_s": b / row[k] * 1e3
+                    for k in ("eager_rt_ms", "graph_rt_ms", "eager_pipe_ms", "graph_pipe_ms")})
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        table.append(row)
+        say(f"[5/6] (g) predict uint8, batch {b}: round trip eager {row['eager_rt_ms']:.3f} "
+            f"ms, graph {row['graph_rt_ms']:.3f} ms; pipelined eager "
+            f"{row['eager_pipe_ms']:.3f} ms, graph {row['graph_pipe_ms']:.3f} ms per call; "
+            f"frames/s {row['eager_rt_frames_per_s']:.1f} / {row['graph_rt_frames_per_s']:.1f} "
+            f"round trip, {row['eager_pipe_frames_per_s']:.1f} / "
+            f"{row['graph_pipe_frames_per_s']:.1f} pipelined; peak {row['peak_gib']:.2f} GiB; "
+            f"graph == eager bit for bit")
+    session._aot_cache.clear()
+    torch.cuda.empty_cache()
+    return table
+
+
+def default_algorithms_rerun_gap(session, x, b=64):
+    """The largest |difference| between two eager predictions of one batch
+    with cuDNN's default (not deterministic) algorithms, which the session
+    replaces; the session's own setting is restored after."""
+    xb = {k: v[:b] for k, v in x.items()}
+    torch.backends.cudnn.deterministic = False
+    try:
+        first, second = host(session.predict(**xb)), host(session.predict(**xb))
+    finally:
+        torch.backends.cudnn.deterministic = True
+    return max(float(np.abs(first[k] - second[k]).max()) for k in first)
+
+
+def check_parity_graph(session, x, b=8):
+    """(g) 2b: a ``parity`` session's graph predictor, its dropout drawing
+    from the session's generator registered with the graph: two replays on
+    one batch differ, and hold finite values."""
+    from mmdyn_tpu_torch.serve import InferenceSession
+
+    parity = InferenceSession(session.cfg, session.params, parity=True)
+    graph = parity.aot_predict(b, tuple(sorted(x)))
+    xb = {k: v[:b] for k, v in x.items()}
+    first, second = host(graph(xb)), host(graph(xb))
+    if np.array_equal(first["mu"], second["mu"]) or not all(
+            np.isfinite(v).all() for v in (*first.values(), *second.values())):
+        raise AssertionError("(g) parity graph: dropout not live or values not finite")
+    say(f"[5/6] (g) parity session's graph at batch {b}: dropout live across replays "
+        f"(max |mu| change {float(np.abs(first['mu'] - second['mu']).max())!r})")
+
+
+def check_frozen(session, x, rows=(0, 17, 40, 63)):
+    """(g) 4: ``freeze_bn`` on 256 rows, then per-example determinism at the
+    fixed serving shape: row i served alone (padded to the batch of 64 by
+    repeating it, as the server pads) equals row i inside a batch of 64 of
+    other rows, bit for bit, through the frozen session's graph predictor.
+    Also reads the eager batch-1 against batch-64 gap (other shapes may take
+    other cuDNN algorithms)."""
+    frozen = session.freeze_bn(**{k: v[:256] for k, v in x.items()})
+    mods = tuple(sorted(x))
+    graph = frozen.aot_predict(64, mods, uint8_images=True)
+    batch = {k: v[256:320] for k, v in x.items()}
+    together = host(graph(batch))
+    for i in rows:
+        alone = host(graph({k: np.repeat(v[i:i + 1], 64, axis=0) for k, v in batch.items()}))
+        differ = [k for k in together if not np.array_equal(alone[k][0], together[k][i])]
+        if differ:
+            raise AssertionError(f"(g) frozen row {i}: alone != in the batch in {differ}")
+    one = host(frozen.predict(**{k: v[:1] for k, v in batch.items()}, uint8_images=True))
+    eager64 = host(frozen.predict(**batch, uint8_images=True))
+    gap = {"mu": float(np.abs(one["mu"][0] - eager64["mu"][0]).max()),
+           "visual_uint8": int(np.abs(one["visual"][0].astype(np.int16)
+                                      - eager64["visual"][0].astype(np.int16)).max())}
+    say(f"[5/6] (g) freeze_bn on 256 rows ({len(frozen.bn_stats)} BatchNorm layers): rows "
+        f"{list(rows)} alone (padded to 64) == inside a batch of 64, bit for bit; eager "
+        f"batch 1 vs batch 64: max |mu| gap {gap['mu']!r}, uint8 gap {gap['visual_uint8']}")
+    frozen._aot_cache.clear()
+    return frozen, gap
+
+
+def http_post(port, path, arrays=None):
+    """(status, ms, npz or error) of one POST with an npz body."""
+    import http.client
+    import io
+
+    body = b""
+    if arrays is not None:
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        body = buf.getvalue()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    if resp.status != 200:
+        raise AssertionError(f"(g) POST {path}: {resp.status} {data[:300]!r}")
+    return ms, np.load(io.BytesIO(data))
+
+
+@contextlib.contextmanager
+def running(server):
+    """``server`` serving from a thread inside the block; shut down and
+    closed after it."""
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_port
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def first_call_in_new_thread_ms(fn):
+    """Host ms of ``fn`` as the first call of a new thread (torch builds
+    cuDNN's execution plans once per thread)."""
+    import threading
+
+    out = []
+    thread = threading.Thread(target=lambda: out.append(mean_ms(fn, 1, warm=0)))
+    thread.start()
+    thread.join()
+    return out[0]
+
+
+def check_http(session, frozen, x):
+    """(g) 6: the HTTP server on 127.0.0.1, port 0, batch 64: /healthz, then
+    /predict with uint8 npz bodies at batch 1 and 64 (round trip ms), then
+    /rollout?steps=5 and /sample?n=5; then 8 concurrent batch-1 clients
+    through the micro-batcher on the frozen session, whose rows must equal
+    the same requests served one by one, bit for bit."""
+    import http.client
+    import threading
+
+    from mmdyn_tpu_torch.serve.server import make_server
+
+    def wire(b, off=0):
+        sl = slice(off, off + b)
+        return {"visual": (x["visual"][sl] * 255).astype(np.uint8),
+                "tactile": (x["tactile"][sl] * 255).astype(np.uint8), "pose": x["pose"][sl]}
+
+    out = {}
+    with running(make_server(session, port=0, batch_size=64)) as port:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        if health["status"] != "ok" or health["batch_size"] != 64:
+            raise AssertionError(f"(g) /healthz: {health}")
+        for b in (1, 64):
+            ms = [http_post(port, "/predict", wire(b))[0] for _ in range(12)][2:]
+            out[f"predict_{b}_ms"] = float(np.median(ms))
+            out[f"predict_{b}_max_ms"] = float(max(ms))
+        _, traj = http_post(port, "/rollout?steps=5", wire(1))
+        _, samples = http_post(port, "/sample?n=5&seed=3")
+        if traj["visual"].shape != (5, 1, 64, 64, 3) or samples["visual"].shape != (5, 64, 64, 3):
+            raise AssertionError(f"(g) rollout {traj['visual'].shape}, sample "
+                                 f"{samples['visual'].shape}")
+    with running(make_server(frozen, port=0, batch_size=64)) as port:
+        solo = [http_post(port, "/predict", wire(1, i))[1] for i in range(8)]
+    server = make_server(frozen, port=0, batch_size=64, microbatch_wait_ms=50.0)
+    app = server.RequestHandlerClass.app
+    coalesced = [None] * 8
+    with running(server) as port:
+        def client(i):
+            coalesced[i] = http_post(port, "/predict", wire(1, i))[1]
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    for i, (a, b) in enumerate(zip(coalesced, solo)):
+        differ = [k for k in b.files if a is None or not np.array_equal(a[k], b[k])]
+        if differ:
+            raise AssertionError(f"(g) micro-batched client {i} != solo in {differ}")
+    out["microbatch_batches"] = app._batches
+    x64 = {k: v[:64] for k, v in x.items()}
+    call = lambda: host(session.predict(**x64, uint8_images=True))  # noqa: E731
+    out["new_thread_first_predict_ms"] = [first_call_in_new_thread_ms(call) for _ in range(3)]
+    out["warm_thread_predict_ms"] = mean_ms(call, 5)
+    say(f"[5/6] (g) HTTP /predict round trip (uint8 npz, median of 10): batch 1 "
+        f"{out['predict_1_ms']:.3f} ms (max {out['predict_1_max_ms']:.3f}), batch 64 "
+        f"{out['predict_64_ms']:.3f} ms (max {out['predict_64_max_ms']:.3f}); /rollout "
+        f"steps=5 and /sample n=5 ok; 8 concurrent batch-1 clients on the frozen session "
+        f"served in {app._batches} device batches, each row == its solo reply bit for bit; "
+        f"predict at batch 64 as a new thread's first call "
+        f"{[round(v, 3) for v in out['new_thread_first_predict_ms']]} ms, on a warm thread "
+        f"{out['warm_thread_predict_ms']:.3f} ms (why the server keeps one device thread)")
+    return out
+
+
+def serve_path(kernels, card, tmp):
+    """(g): serving the run (f) trained, ``tmp / "run"`` (cnn-mvae,
+    visuotactile + pose, latent 256, float32), with the kernel counters set
+    to 0 just before and read just after: every counter must read 0, as the
+    JAX session fuses with the plain product of experts and has no loss."""
+    from mmdyn_tpu_torch.cli import infer as cli_infer
+    from mmdyn_tpu_torch.serve import InferenceSession, export_session, load_exported
+
+    run = tmp / "run"
+    x = serving_inputs(1024)
+    torch.cuda.empty_cache()
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    session = InferenceSession.from_run(run)
+    load_s = time.perf_counter() - t0
+    cpu = InferenceSession.from_run(run, device="cpu")
+    worst = check_card_vs_cpu_serving(session, cpu, {k: v[:32] for k, v in x.items()})
+    del cpu
+    say(f"[5/6] (g) InferenceSession.from_run of (f)'s run on the card in {load_s:.2f} s: "
+        f"batch 32 matches the CPU session ({json.dumps(worst)}; probabilities atol 1e-4, "
+        f"mu / logvar / pose max gap over max |cpu| 1e-4, uint8 <= 1 on <= 0.1%)")
+    table = time_predict(session, x)
+    rerun_gap = default_algorithms_rerun_gap(session, x)
+    say(f"[5/6] (g) with cuDNN's default algorithms two eager predictions of one batch of "
+        f"64 differ by {rerun_gap!r} (max |a - b|); the session's deterministic ones: 0, "
+        f"the graph == eager checks above")
+    check_parity_graph(session, x)
+
+    x64 = {k: v[:64] for k, v in x.items()}
+    session.rollout(2, **x64)                             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = host(session.rollout(16, **x64, uint8_images=True))
+    rollout_ms = (time.perf_counter() - t0) * 1e3 / 16
+    if traj["visual"].shape != (16, 64, 64, 64, 3) or not np.isfinite(traj["mu"]).all():
+        raise AssertionError(f"(g) rollout: {traj['visual'].shape}")
+    say(f"[5/6] (g) rollout 16 steps at batch 64: {rollout_ms:.3f} ms per step "
+        f"(host arrays in, uint8 trajectory out)")
+
+    frozen, frozen_gap = check_frozen(session, x)
+
+    t0 = time.perf_counter()
+    manifest = export_session(session, tmp / "artifact", batch_size=64,
+                              modalities=tuple(sorted(x)))
+    export_s = time.perf_counter() - t0
+    art = load_exported(tmp / "artifact")(**x64)
+    live = session.predict(**x64)
+    export_gap = max(float((art[k] - live[k]).abs().max()) for k in manifest["outputs"])
+    if manifest["platforms"] != [session.device.type] or export_gap > 1e-5:
+        raise AssertionError(f"(g) export: {manifest['platforms']}, gap {export_gap!r}")
+    say(f"[5/6] (g) export_session at batch 64 in {export_s:.2f} s; load_exported's "
+        f"outputs {manifest['outputs']} match predict's, max gap {export_gap!r} (atol 1e-5)")
+
+    http = check_http(session, frozen, x)
+    cli = cli_infer.main(["--run", str(run), "--export", str(tmp / "cli_artifact")])
+    if cli["platforms"] != [session.device.type] or cli["batch_size"] != 64:
+        raise AssertionError(f"(g) cli.infer --export: {cli}")
+    launches = read_counters(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"(g): kernel launches {launches}, expected none")
+    say(f"[5/6] (g) cli.infer --export wrote a {cli['platforms']} artifact at batch "
+        f"{cli['batch_size']}; launches {launches}")
+    del session, frozen
+    torch.cuda.empty_cache()
+    return {"predict": table, "rollout_ms_per_step": rollout_ms, "http": http,
+            "card_vs_cpu": worst, "frozen_gap": frozen_gap, "export_gap": export_gap,
+            "default_algorithms_rerun_gap": rerun_gap,
+            "launches": launches}
 
 
 def main():
@@ -851,7 +1214,9 @@ def main():
             dyn, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step, seq_len=8,
             profile_steps=2, top=25),
     }
-    cli = cli_path(kernels, card, paths["seq_modeling"]["frames_per_s"])
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_path(kernels, card, paths["seq_modeling"]["frames_per_s"], Path(tmp))
+        serve = serve_path(kernels, card, Path(tmp))
 
     for e in entries:
         # the bf16 kernel's main path is (d), the others' (a)
@@ -859,11 +1224,12 @@ def main():
         e["launches"] = paths[main]["launches"][e["name"]]
         e["launches_by_path"] = {name: p["launches"][e["name"]] for name, p in paths.items()}
         e["launches_by_path"]["cli"] = cli["launches"][e["name"]]
+        e["launches_by_path"]["serve"] = serve["launches"][e["name"]]
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
     say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (
         "step_ms", "frames_per_s", "peak_gib", "busy_share", "conv_share") if k in p}
-        for name, p in paths.items()}, "cli": cli}))
+        for name, p in paths.items()}, "cli": cli, "serve": serve}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

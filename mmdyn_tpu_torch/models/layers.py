@@ -13,6 +13,13 @@ form is here:
   ``groups`` splits the batch into independent groups with their own
   statistics, which is how the subset decoders keep per-subset BN while their
   convolutions run on all subsets at once.
+* ``TrainBatchNorm`` modes, a serving knob (JAX ``layers.py:134-176``):
+  ``batch`` (training, the default), ``collect`` (batch statistics, also
+  recorded in the module's ``mean`` / ``var`` buffers) and ``frozen``
+  (normalise by those buffers: per-example deterministic). The buffers are
+  not persistent, so a trained ``state_dict`` loads strictly into a model of
+  any mode; ``bn_stats`` / ``load_bn_stats`` move them as a dict keyed by
+  module name, as the JAX ``bn_stats`` collection does.
 * ``dropout`` — inverted dropout drawing its mask from an explicit
   ``torch.Generator``.
 * ``Mlp`` — the reference ``mlp()`` stack: Linear -> act for all but the last
@@ -100,18 +107,68 @@ def train_batch_norm(x, weight, bias, groups=1, eps=BN_EPS):
     return y.reshape(x.shape)
 
 
-class TrainBatchNorm(nn.Module):
-    """Affine batch-statistics BN; parameters named as nn.BatchNorm2d's
-    (``weight``, ``bias``), with no running-statistics buffers."""
+def frozen_batch_norm(x, mean, var, weight, bias, eps=BN_EPS):
+    """BN of an (N, C, ...) tensor by stored float32 statistics, in the
+    activation dtype, in the JAX frozen mode's order:
+    (x - mean) * rsqrt(var + eps) * weight + bias."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    dt = x.dtype
+    inv = torch.rsqrt(var + eps)
+    return ((x - mean.to(dt).reshape(shape)) * inv.to(dt).reshape(shape)
+            * weight.to(dt).reshape(shape) + bias.to(dt).reshape(shape))
 
-    def __init__(self, num_features: int, eps: float = BN_EPS):
+
+BN_MODES = ("batch", "collect", "frozen")
+
+
+class TrainBatchNorm(nn.Module):
+    """Affine BN; parameters named as nn.BatchNorm2d's (``weight``,
+    ``bias``). ``mode`` is one of ``BN_MODES`` (module doc); the serving
+    statistics live in the non-persistent buffers ``mean`` and ``var``."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS, mode: str = "batch"):
         super().__init__()
+        if mode not in BN_MODES:
+            raise ValueError(f"BatchNorm mode {mode!r} is not one of {BN_MODES}")
         self.eps = eps
+        self.mode = mode
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features), persistent=False)
+        self.register_buffer("var", torch.ones(num_features), persistent=False)
 
     def forward(self, x, groups: int = 1):
+        if self.mode == "frozen":      # per-example: ``groups`` has no effect
+            return frozen_batch_norm(x, self.mean, self.var, self.weight, self.bias,
+                                     self.eps)
+        if self.mode == "collect":
+            if groups != 1:
+                raise ValueError("a collect pass takes one group of statistics")
+            var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), correction=0)
+            self.mean.copy_(mean)
+            self.var.copy_(var)
         return train_batch_norm(x, self.weight, self.bias, groups, self.eps)
+
+
+def bn_stats(model: nn.Module) -> dict:
+    """The serving statistics of every ``TrainBatchNorm`` in ``model``, as
+    {module name: {"mean", "var"}} float32 copies; empty for a BN-free
+    model."""
+    return {name: {"mean": m.mean.clone(), "var": m.var.clone()}
+            for name, m in model.named_modules() if isinstance(m, TrainBatchNorm)}
+
+
+@torch.no_grad()
+def load_bn_stats(model: nn.Module, stats: dict) -> None:
+    """Copy ``stats`` (as ``bn_stats`` returns them) into ``model``'s BN
+    buffers; every BN layer must be given, and no other name."""
+    layers = {name: m for name, m in model.named_modules() if isinstance(m, TrainBatchNorm)}
+    if set(stats) != set(layers):
+        raise ValueError(f"BatchNorm statistics for {sorted(stats)} do not match the "
+                         f"model's BatchNorm layers {sorted(layers)}")
+    for name, m in layers.items():
+        m.mean.copy_(torch.as_tensor(stats[name]["mean"], dtype=torch.float32))
+        m.var.copy_(torch.as_tensor(stats[name]["var"], dtype=torch.float32))
 
 
 def dropout(x, rate: float, generator=None):

@@ -25,12 +25,13 @@ from mmdyn_tpu_torch.models.vae import BOTTLENECK, condition_width, conv_trunk
 class Regressor(nn.Module):
     def __init__(self, out_dim: int = 7, conditional: bool = False,
                  condition_dim: Optional[int] = None,
-                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32",
+                 bn_mode: str = "batch"):
         super().__init__()
         self.conditional = conditional
         self.dropout_rate = dropout_rate
         dt = compute_dtype
-        self.conv_net = conv_trunk(dt)
+        self.conv_net = conv_trunk(dt, bn_mode)
         self.fc_net = nn.Sequential(
             Linear(math.prod(BOTTLENECK), 512, compute_dtype=dt), Swish())
         fan_in = 512 + condition_width(conditional, condition_dim)

@@ -33,6 +33,9 @@ Submodules are named as the reference's torch ``state_dict``.
 Randomness: dropout masks and reparameterisation noise come from an explicit
 ``torch.Generator``, consumed in call order.
 
+Serving: ``bn_mode`` is the mode of every BatchNorm (``batch``, ``collect``
+or ``frozen``, ``models/layers.py``), as the JAX modules' ``bn_mode`` field.
+
 Precision: ``compute_dtype`` is the activation policy of every conv and
 Linear (``models/layers.py``). The encoder heads return float32 under every
 policy, so PoE, reparameterisation and KL run in float32 (JAX vae.py:120-122).
@@ -88,14 +91,15 @@ def condition_width(conditional, condition_dim):
     return condition_dim
 
 
-def conv_trunk(compute_dtype="float32"):
+def conv_trunk(compute_dtype="float32", bn_mode="batch"):
     """The DCGAN trunk of the encoders and the regressor, NCHW in and out."""
     conv = lambda *a: Conv2d(*a, bias=False, compute_dtype=compute_dtype)  # noqa: E731
+    bn = lambda c: TrainBatchNorm(c, mode=bn_mode)  # noqa: E731
     return nn.Sequential(
         conv(3, 32, 4, 2, 1), Swish(),
-        conv(32, 64, 4, 2, 1), TrainBatchNorm(64), Swish(),
-        conv(64, 128, 4, 2, 1), TrainBatchNorm(128), Swish(),
-        conv(128, 256, 4, 1, 0), TrainBatchNorm(256), Swish(),
+        conv(32, 64, 4, 2, 1), bn(64), Swish(),
+        conv(64, 128, 4, 2, 1), bn(128), Swish(),
+        conv(128, 256, 4, 1, 0), bn(256), Swish(),
     )
 
 
@@ -106,7 +110,8 @@ class Encoder(nn.Module):
                  input_dim: int = 784, layer_sizes: Sequence[int] = (256, 256),
                  conditional: bool = False, categorical_conditions: bool = False,
                  condition_dim: Optional[int] = None,
-                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32",
+                 bn_mode: str = "batch"):
         super().__init__()
         self.architecture = architecture
         self.dropout_rate = dropout_rate
@@ -115,7 +120,7 @@ class Encoder(nn.Module):
         self.condition_dim = condition_dim
         dt = compute_dtype
         if architecture == "cnn":
-            self.conv_net = conv_trunk(dt)
+            self.conv_net = conv_trunk(dt, bn_mode)
             self.fc_net = nn.Sequential(
                 Linear(math.prod(BOTTLENECK), 512, compute_dtype=dt), Swish())
             hidden = 512
@@ -151,7 +156,8 @@ class Decoder(nn.Module):
     def __init__(self, latent_size: int = 2, architecture: str = "cnn",
                  output_dim: int = 784, layer_sizes: Sequence[int] = (256, 256),
                  conditional: bool = False, categorical_conditions: bool = False,
-                 condition_dim: Optional[int] = None, compute_dtype: str = "float32"):
+                 condition_dim: Optional[int] = None, compute_dtype: str = "float32",
+                 bn_mode: str = "batch"):
         super().__init__()
         self.architecture = architecture
         self.conditional = conditional
@@ -161,12 +167,13 @@ class Decoder(nn.Module):
         fan_in = latent_size + condition_width(conditional, condition_dim)
         if architecture == "cnn":
             deconv = lambda *a: ConvTranspose2d(*a, bias=False, compute_dtype=dt)  # noqa: E731
+            bn = lambda c: TrainBatchNorm(c, mode=bn_mode)  # noqa: E731
             self.upsample = nn.Sequential(
                 Linear(fan_in, math.prod(BOTTLENECK), compute_dtype=dt), Swish())
             self.hallucinate = nn.Sequential(
-                deconv(256, 128, 4, 1, 0), TrainBatchNorm(128), Swish(),
-                deconv(128, 64, 4, 2, 1), TrainBatchNorm(64), Swish(),
-                deconv(64, 32, 4, 2, 1), TrainBatchNorm(32), Swish(),
+                deconv(256, 128, 4, 1, 0), bn(128), Swish(),
+                deconv(128, 64, 4, 2, 1), bn(64), Swish(),
+                deconv(64, 32, 4, 2, 1), bn(32), Swish(),
                 deconv(32, 3, 4, 2, 1),
             )
         else:
@@ -195,14 +202,16 @@ class VAE(nn.Module):
                  decoder_layer_sizes: Sequence[int] = (256, 256),
                  conditional: bool = False, categorical_conditions: bool = False,
                  condition_dim: Optional[int] = None,
-                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32",
+                 bn_mode: str = "batch"):
         super().__init__()
         self.latent_size = latent_size
         self.architecture = architecture
         self.input_dim = input_dim
         cond = dict(conditional=conditional,
                     categorical_conditions=categorical_conditions,
-                    condition_dim=condition_dim, compute_dtype=compute_dtype)
+                    condition_dim=condition_dim, compute_dtype=compute_dtype,
+                    bn_mode=bn_mode)
         self.encoder = Encoder(latent_size, architecture, input_dim,
                                encoder_layer_sizes, dropout_rate=dropout_rate, **cond)
         self.decoder = Decoder(latent_size, architecture, input_dim,
@@ -236,7 +245,8 @@ class MVAE(nn.Module):
     def __init__(self, latent_size: int = 256, use_pose: bool = False,
                  conditional: bool = False, categorical_conditions: bool = False,
                  condition_dim: Optional[int] = None, architecture: str = "cnn",
-                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32"):
+                 dropout_rate: float = DROPOUT_RATE, compute_dtype: str = "float32",
+                 bn_mode: str = "batch"):
         super().__init__()
         if architecture != "cnn":
             raise ValueError("MVAE is not implemented with MLP")
@@ -244,7 +254,8 @@ class MVAE(nn.Module):
         self.use_pose = use_pose
         img = dict(conditional=conditional,
                    categorical_conditions=categorical_conditions,
-                   condition_dim=condition_dim, compute_dtype=compute_dtype)
+                   condition_dim=condition_dim, compute_dtype=compute_dtype,
+                   bn_mode=bn_mode)
         self.visual_encoder = Encoder(latent_size, dropout_rate=dropout_rate, **img)
         self.visual_decoder = Decoder(latent_size, **img)
         self.tactile_encoder = Encoder(latent_size, dropout_rate=dropout_rate, **img)

@@ -22,6 +22,13 @@ as a VAE), the regressor's trunk at the top with ``out_0..2`` as
 ``out_net.0/2/4``, else the MVAE's modality pairs.
 
 The rules are linear maps, so they carry gradients as well as weights.
+
+``bn_stats_from_jax(model_name, bn_stats)`` carries a JAX ``bn_stats``
+collection (a frozen-BatchNorm serving session's statistics) by the same
+BatchNorm name map, as ``models/layers.py::load_bn_stats`` takes it.
+``from_reference_state_dict`` reads a reference-format ``state_dict`` (the
+names are already the port's) by dropping the BatchNorm running buffers that
+the reference writes and the port does not keep.
 """
 
 from __future__ import annotations
@@ -116,3 +123,33 @@ def params_from_jax(model_name, params):
                 out.update(_decoder(params[name], name + "."))
     return {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def _bn_stats_prefixed(out, p, prefix, pairs):
+    for fl, th in pairs:
+        if fl in p:
+            out[prefix + th] = {k: torch.tensor(np.asarray(p[fl][k], dtype=np.float32))
+                                for k in ("mean", "var")}
+
+
+def bn_stats_from_jax(model_name, bn_stats):
+    """JAX ``bn_stats`` tree -> {port BatchNorm module name: {"mean", "var"}}."""
+    out = {}
+    if "regressor" in model_name:
+        _bn_stats_prefixed(out, bn_stats, "", _ENC_BN)
+        return out
+    for name, p in bn_stats.items():
+        pairs = _DEC_BN if name.endswith("decoder") else _ENC_BN
+        _bn_stats_prefixed(out, p, name + ".", pairs)
+    return out
+
+
+_REFERENCE_BN_BUFFERS = (".running_mean", ".running_var", ".num_batches_tracked")
+
+
+def from_reference_state_dict(sd):
+    """A reference ``state_dict`` as the port's: the BatchNorm running
+    buffers (which the reference never reads, evaluating in train mode)
+    dropped, every tensor float32 on the CPU."""
+    return {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
+            for k, v in sd.items() if not k.endswith(_REFERENCE_BN_BUFFERS)}

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "mmdyn_tpu_torch"
 
@@ -48,9 +50,9 @@ def test_no_source_names_jax_or_the_jax_package():
 
 _CLI_HELP = """
 import runpy, sys
-sys.argv = ["mmdyn_tpu_torch.cli.main", "--help"]
+sys.argv = ["mmdyn_tpu_torch.cli.{cli}", "--help"]
 try:
-    runpy.run_module("mmdyn_tpu_torch.cli.main", run_name="__main__")
+    runpy.run_module("mmdyn_tpu_torch.cli.{cli}", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
@@ -60,11 +62,16 @@ assert not bad, bad
 """
 
 
-def test_cli_help_loads_no_jax():
-    """``python -m mmdyn_tpu_torch.cli.main --help`` in a fresh interpreter
-    prints the training flags and loads neither JAX nor the JAX package."""
-    out = subprocess.run([sys.executable, "-c", _CLI_HELP], cwd=REPO,
+@pytest.mark.parametrize("cli, flags", [
+    ("main", ("--dataset-path", "--bf16-full")),
+    ("infer", ("--torch-ckpt", "--rollout", "--export", "--calibrate", "--no-pose")),
+    ("serve", ("--microbatch-wait-ms", "--calibrate", "--port")),
+])
+def test_cli_help_loads_no_jax(cli, flags):
+    """``python -m mmdyn_tpu_torch.cli.<cli> --help`` in a fresh interpreter
+    prints the CLI's flags and loads neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _CLI_HELP.format(cli=cli)], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "--dataset-path" in out.stdout and "--bf16-full" in out.stdout
+    assert all(f in out.stdout for f in flags + ("--platform",)), out.stdout
     assert "LOADED []" in out.stdout
