@@ -90,6 +90,35 @@ Phases, any failure raises and exits non-zero:
        /rollout, /sample, and 8 concurrent clients through the micro-batcher
        on the frozen session, equal to their solo replies bit for bit); and
        ``cli.infer --export``.
+   (h) compiling simulator dumps into a corpus, where Pillow imports (the
+       dumps are PNGs): ``make_synthetic_dumps`` writes 32 sequences x 10
+       frames at the simulator's 480 x 640; ``compile_dataset`` with the PIL
+       and the native engine (``native/ingest.cpp`` built by g++ into
+       ``mmdyn_tpu_torch/data/_build/``; g++'s error is printed and fails the
+       path if it does not build), uint8 keys within 1 and the others equal,
+       frames/s of each; then ``cli.main`` on two copies of the dump
+       directory without a corpus: it compiles 31 sequences (strict parity)
+       and 32 (``--no-strict-parity``) and trains cnn-mvae seq_modeling at
+       batch 4 for 1 epoch on the card, 1 PoE and 2 BCE launches per forward
+       (6 train steps and 1 validation batch per run).
+   (i) data generation at full width, on exp_1's scene (``make_sensor``'s
+       sensor and a box dropped from (0, 0, 1.5); no Pillow): the rollout of
+       ``SimulatorTorch``, 500 steps from seeded drop orientations, at
+       exp_1's batch of 10 trials (one object's ``--trial_per_obj``) and at
+       1024 trials (a many-trials reading), ms per rollout and trials/s, and
+       a profiled 100-step rollout at each (the device's busy share); card
+       vs the same module on the CPU for 8 trials
+       (max |d pos| <= 1e-4, max |d force| <= 1e-4 of the largest force) and
+       vs the host ``AnalyticBackend`` for 2 (test_physics_jax.py's bounds).
+       Then the frames of 8 trials x 50 snapshots (every 10th step), 400 at
+       640 x 480 in chunks of 128: ``RaycastTorch.render_frames_packed`` and
+       ``TactileRendererTorch.render_frames`` on the card, frames/s over
+       three timed passes after a warm chunk of 128, the download of the
+       uint8 payloads, peak GiB; one chunk against the CPU
+       (seg mismatch <= 1e-3, depth gap <= 1e-5 where seg agrees, rgb and
+       tactile bytes more than 1 apart <= 1e-4 each) and rerun bit for bit;
+       one chunk profiled (device time by kernel family). No kernel of the
+       port launches.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -580,33 +609,70 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     return out
 
 
-def profile(step, state, batch, gen, kl, steps=3, top=40):
-    """torch.profiler over a few steps: device time by kernel and the
-    device's busy share of the wall time."""
+def kernel_family(name):
+    for key, family in (("Cat", "cat"), ("copy", "copy / cast"), ("reduce", "reduce"),
+                        ("index", "index"), ("elementwise", "elementwise")):
+        if key in name:
+            return family
+    return "other"
+
+
+def dev_us(event):
+    """A profiler event's own device time in us (the attribute's name
+    differs across torch versions)."""
+    return getattr(event, "self_device_time_total", None) or \
+        getattr(event, "self_cuda_time_total", 0)
+
+
+def device_profile(fn, label, calls=1, top=12):
+    """``fn`` once under torch.profiler, where it makes ``calls`` calls of
+    the work named by ``label``: wall time, the device's busy share, device
+    time by kernel family and the top kernels per call. Returns the readings
+    and the device events, heaviest first."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step(state, batch, gen, kl)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or \
-        getattr(e, "self_cuda_time_total", 0)  # noqa: E731
     events.sort(key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError(f"{label}: the profile shows no device time")
+    families = {}
+    for e in events:
+        fam = kernel_family(e.key)
+        families[fam] = families.get(fam, 0.0) + dev_us(e) / 1e3
+    shares = {f: ms / busy_ms for f, ms in sorted(families.items(), key=lambda x: -x[1])}
+    launches = sum(e.count for e in events)
+    say(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"({busy_ms / wall_ms:.1%}), {launches} kernel launches; device time by family "
+        + ", ".join(f"{f} {s:.1%}" for f, s in shares.items())
+        + f"; top kernels{' per call' if calls > 1 else ''}:")
+    for e in events[:top]:
+        say(f"  {dev_us(e) / 1e3 / calls:10.4f} ms {e.count // calls:6d}x  {e.key[:130]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "launches": launches, "family_shares": shares}, events
+
+
+def profile(step, state, batch, gen, kl, steps=3, top=40):
+    """``device_profile`` over a few train steps, plus the convolutions'
+    share of device time and the port's own kernels per step."""
+    def run():
+        for _ in range(steps):
+            step(state, batch, gen, kl)
+
+    prof, events = device_profile(run, f"{steps} train steps", calls=steps, top=top)
+    busy_ms = prof["busy_ms"]
     conv_ms = sum(dev_us(e) for e in events
                   if any(c in e.key.lower() for c in CONV_KERNELS)) / 1e3
-    say(f"[profile] {steps} steps, wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); convolution kernels by name "
-        f"{conv_ms:.3f} ms ({conv_ms / busy_ms:.1%} of busy); top kernels per step:")
-    for e in events[:top]:
-        say(f"  {dev_us(e) / 1e3 / steps:10.4f} ms/step {e.count // steps:5d}x  "
-            f"{e.key[:140]}")
+    say(f"[profile] convolution kernels by name {conv_ms:.3f} ms "
+        f"({conv_ms / busy_ms:.1%} of busy)")
     # the port's own kernels, whatever their rank (L2 as the step leaves it)
     ours = [e for e in events if any(k in e.key for k in PORT_KERNELS)]
     if not ours:
@@ -614,7 +680,7 @@ def profile(step, state, batch, gen, kl, steps=3, top=40):
     say("[profile] the port's kernels per step: " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3 / steps:.4f} ms in {e.count // steps}x "
         f"({dev_us(e) / e.count:.2f} us each)" for e in ours))
-    return {"busy_share": busy_ms / wall_ms, "conv_share": conv_ms / busy_ms}
+    return {"busy_share": prof["busy_share"], "conv_share": conv_ms / busy_ms}
 
 
 @torch.no_grad()
@@ -1143,6 +1209,319 @@ def serve_path(kernels, card, tmp):
             "launches": launches}
 
 
+ZERO_LAUNCHES = {"poe_reparam": 0, "bce_sum": 0, "bce_sum_bf16": 0}
+CORPUS_SEQS, CORPUS_FRAMES = 32, 10      # (h): dumps at the simulator's 480 x 640
+DROP_STEPS, INTERVAL = 500, 10           # (i): exp_1's --n_timesteps, --interval
+# (i): exp_1's --trial_per_obj (one object's trials are one batch), and many
+EXP1_TRIALS, MANY_TRIALS = 10, 1024
+FRAME_TRIALS, CHUNK = 8, 128             # (i): 8 trials x 50 snapshots, the dump path's chunk
+
+
+def corpus_path(kernels, card, tmp):
+    """(h): simulator-shaped PNG dumps written by ``make_synthetic_dumps``
+    (32 sequences x 10 frames at 480 x 640), compiled by the PIL and the
+    native engine (uint8 keys within 1, the others equal), then the training
+    CLI on copies of the dump directory without a corpus: it must compile it
+    (31 sequences under strict parity, 32 with ``--no-strict-parity``) and
+    train cnn-mvae seq_modeling at batch 4 for 1 epoch on the card. The
+    kernel counters are set to 0 before the compiles and read after the two
+    runs. Only where Pillow imports: the dumps are PNGs."""
+    import importlib.util
+    import shutil
+
+    if importlib.util.find_spec("PIL") is None:
+        say("[5/6] (h) corpus: Pillow does not import here, so writing and compiling PNG "
+            "dumps is covered by the CPU tests only (tests/test_torch_compile.py)")
+        return {"skipped": "no Pillow", "launches": dict(ZERO_LAUNCHES)}
+    from mmdyn_tpu_torch.cli import main as cli_main
+    from mmdyn_tpu_torch.data import native
+    from mmdyn_tpu_torch.data.compile import COMPILED_NAME, compile_dataset, load_packed
+    from mmdyn_tpu_torch.data.synthetic import make_synthetic_dumps
+
+    reset_counters(kernels)
+    dumps = tmp / "dumps"
+    t0 = time.perf_counter()
+    make_synthetic_dumps(dumps, n_sequences=CORPUS_SEQS, seq_length=CORPUS_FRAMES,
+                         image_size=(480, 640), seed=0)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not native.available():
+        say(f"[5/6] (h) g++ failed to build native/ingest.cpp: {native.build_error()}")
+        raise AssertionError("(h): the native ingest library did not build")
+    build_s = time.perf_counter() - t0
+    # every frame of the 31 emitted sequences, 3 PNG streams each, and their finals
+    frames = (CORPUS_SEQS - 1) * CORPUS_FRAMES
+    seconds, corpora = {}, {}
+    for engine in ("pil", "native"):
+        t0 = time.perf_counter()
+        path = compile_dataset(dumps, seed=0, compiled_name=f"{engine}.npz", verbose=False,
+                               engine=engine)
+        seconds[engine] = time.perf_counter() - t0
+        corpora[engine] = load_packed(path)
+    pil, nat = corpora["pil"], corpora["native"]
+    gaps = {}
+    for k in pil:
+        if pil[k].dtype == np.uint8:
+            gaps[k] = int(np.abs(pil[k].astype(int) - nat[k].astype(int)).max())
+        elif not np.array_equal(pil[k], nat[k]):
+            raise AssertionError(f"(h): key {k} differs between the engines")
+    if sorted(pil) != sorted(nat) or max(gaps.values()) > 1 or \
+            pil["visual"].shape != (CORPUS_SEQS - 1, CORPUS_FRAMES, 64, 64, 3):
+        raise AssertionError(f"(h): engines disagree: uint8 gaps {gaps}, "
+                             f"shape {pil['visual'].shape}")
+    fps = {e: frames / s for e, s in seconds.items()}
+    say(f"[5/6] (h) corpus: {CORPUS_SEQS} x {CORPUS_FRAMES} dumps at 480 x 640 written in "
+        f"{write_s:.2f} s; native/ingest.cpp built in {build_s:.2f} s; compile of {frames} "
+        f"frames (3 streams each): PIL {seconds['pil']:.3f} s ({fps['pil']:.1f} frames/s), "
+        f"native {seconds['native']:.3f} s ({fps['native']:.1f} frames/s); uint8 keys "
+        f"within {max(gaps.values())} ({gaps}), the others equal")
+
+    argv = ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae", "--input-type",
+            "visuotactile", "--use-pose", "--batchsize", "4", "--num-epochs", "1",
+            "--no-tensorboard"]
+    runs = {}
+    for name, extra, n in (("strict", [], CORPUS_SEQS - 1),
+                           ("no-strict", ["--no-strict-parity"], CORPUS_SEQS)):
+        ds = tmp / f"ds_{name}"
+        shutil.copytree(dumps / "dataset", ds / "dataset")
+        t0 = time.perf_counter()
+        run = cli_main.main(argv + extra + ["--dataset-path", str(ds), "--log-dir",
+                                            str(tmp / f"run_{name}")])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        rows = load_packed(ds / COMPILED_NAME)["visual"].shape[0]
+        logs = run._logger_dict
+        losses = logs["Loss/train_epoch"] + logs["Loss/validation_epoch"]
+        shape = (rows, len(run.train_loader), len(run.test_loader), run.device.type)
+        if shape != (n, 6, 1, "cuda") or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"(h) {name}: (sequences, train batches, test batches, "
+                                 f"device) {shape}, losses {losses}")
+        runs[name] = {"sequences": rows, "wall_s": wall_s, "losses": losses}
+        say(f"[5/6] (h) cli.main {' '.join(extra) or '(strict parity)'} on a dump directory "
+            f"without a corpus: compiled {rows} sequences, trained 6 steps + 1 validation "
+            f"batch on the card in {wall_s:.2f} s; losses {losses}")
+        del run
+    launches = read_counters(kernels)
+    # 2 runs x (6 train + 1 validation) forwards of the MVAE
+    if launches != {"poe_reparam": 14, "bce_sum": 28, "bce_sum_bf16": 0}:
+        raise AssertionError(f"(h): kernel launches {launches}")
+    return {"write_s": write_s, "build_s": build_s, "compile_s": seconds,
+            "frames_per_s": fps, "uint8_gaps": gaps, "runs": runs, "launches": launches}
+
+
+def exp1_scene(seed=0):
+    """exp_1's scene as ``mmdyn_tpu/cli/exp_1_flat_plane.py`` builds it on the
+    analytic engine: ``make_sensor``'s sensor (1.5 x 1.5 x 1 at z 0.5, its
+    640 x 480 camera, a 0.005 gel layer) and one box of the synthetic
+    catalog's sizes and colours, at the reference drop point (0, 0, 1.5)."""
+    from mmdyn_tpu_torch.sim import config as sim_config
+    from mmdyn_tpu_torch.sim.physics import setup_backend
+    from mmdyn_tpu_torch.sim.sensor import make_sensor
+
+    backend = setup_backend(time_step=sim_config.TIME_STEP, gravity=True, engine="analytic")
+    sensor = make_sensor(backend, size=[1.5, 1.5, 1], position=[0, 0, 0.5],
+                         sensor_vector=[0, 0, 1], thickness=0.005, use_force=False,
+                         constrained=False)
+    rng = np.random.default_rng(seed)
+    obj = backend.add_box(rng.uniform(0.06, 0.2, size=3), [0.0, 0.0, 1.5], mass=1,
+                          color=rng.uniform(0.2, 1.0, size=3))
+    return backend, sensor, obj
+
+
+def drop_orientations(k, seed=1):
+    """``sample_pose(random_orn=True, random_chance=0.8)``'s orientations for
+    ``k`` trials from one seed: a uniform quaternion (Shoemake) with chance
+    0.8, else the identity."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((k, 3))
+    q = np.stack([np.sqrt(1 - x[:, 0]) * np.sin(2 * np.pi * x[:, 1]),
+                  np.sqrt(1 - x[:, 0]) * np.cos(2 * np.pi * x[:, 1]),
+                  np.sqrt(x[:, 0]) * np.sin(2 * np.pi * x[:, 2]),
+                  np.sqrt(x[:, 0]) * np.cos(2 * np.pi * x[:, 2])], axis=1)
+    q[rng.random(k) >= 0.8] = [0.0, 0.0, 0.0, 1.0]
+    return q
+
+
+def host_rollout(quat, n_steps):
+    """Pre-step positions of every body and the sensor <-> object pair force
+    of one exp_1 trial on the host's float64 AnalyticBackend."""
+    backend, sensor, obj = exp1_scene()
+    backend.set_pose(obj, [0.0, 0.0, 1.5], quat)
+    ids = sorted(backend.bodies)
+    traj, force = np.zeros((n_steps, len(ids), 3)), np.zeros(n_steps)
+    for t in range(n_steps):
+        traj[t] = [backend.bodies[b].position for b in ids]
+        backend.step()
+        force[t] = sum(c.normal_force for c in backend._contacts
+                       if {c.body_a, c.body_b} == {sensor.sensor_id, obj})
+    return traj, force
+
+
+def datagen_path(kernels, card):
+    """(i): exp_1's data generation at full width on the card. The rollout:
+    500 steps of ``SimulatorTorch`` from seeded drop orientations, at
+    exp_1's batch (10 trials) and at 1024 trials, each timed twice and
+    profiled over 100 steps; the 1024 trials against the same module on
+    the CPU (8 trials) and the host engine (2 trials, test_physics_jax.py's
+    bounds). The frames: 8 trials x 50 snapshots (every 10th step) at
+    640 x 480, in chunks of 128, through ``render_frames_packed`` and
+    ``TactileRendererTorch.render_frames``, timed three times after a warm
+    chunk; one chunk against the CPU and rerun bit for bit; one chunk
+    profiled. No kernel of the port launches."""
+    from mmdyn_tpu_torch.sim.physics_torch import pack_scene
+    from mmdyn_tpu_torch.sim.raycast_torch import RaycastTorch, capture_scene
+    from mmdyn_tpu_torch.sim.tactile_torch import TactileRendererTorch
+
+    backend, sensor, obj = exp1_scene()
+    reset_counters(kernels)
+    sim, ids, consts = pack_scene(backend)                 # the card, by default
+    dev = sim.device
+    row = {bid: r for r, bid in enumerate(ids)}
+    k, steps = MANY_TRIALS, DROP_STEPS
+    tile = lambda a: np.tile(a[None], (k,) + (1,) * a.ndim)  # noqa: E731
+    quat = tile(consts["quat"])
+    quat[:, row[obj]] = drop_orientations(k)
+    args = (tile(consts["pos"]), tile(consts["vel"]), quat, tile(consts["sizes"]),
+            tile(consts["mass"]))
+    sim.simulate(*args, 10)                                # loads the kernels
+    torch.cuda.synchronize()
+    rollouts = {}
+    for n in (EXP1_TRIALS, MANY_TRIALS):
+        sub = tuple(a[:n] for a in args)
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = sim.simulate(*sub, steps)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        prof, _ = device_profile(lambda: sim.simulate(*sub, 100),
+                                 f"(i) rollout {n} trials x 100 steps")
+        rollouts[n] = {"ms": ms, "trials_per_s": [n / m * 1e3 for m in ms],
+                       "profile": prof}
+        say(f"[5/6] (i) rollout of {n} trials x {steps} steps on {card}: "
+            f"{ms[0]:.1f} / {ms[1]:.1f} ms ({n / ms[0] * 1e3:.1f} / {n / ms[1] * 1e3:.1f} "
+            f"trials/s)")
+    pos, cf = out["pos"], out["contact_force"]                 # the 1024 trials
+    slot = sim.support_slot(row[sensor.sensor_id])
+    final = out["final_pos"][:, row[obj]]
+    if not (torch.isfinite(pos).all() and torch.isfinite(cf).all()
+            and bool((final[:, 2] > 1.0).all()) and bool((final[:, 2] < 1.5).all())):
+        raise AssertionError("(i): the rollout is not finite or the objects do not rest on "
+                             "the sensor")
+
+    cpu_sim, _, _ = pack_scene(backend, device="cpu")
+    cpu = cpu_sim.simulate(*(a[:FRAME_TRIALS] for a in args), steps)
+    d_pos = float((pos[:FRAME_TRIALS].cpu() - cpu["pos"]).abs().max())
+    d_force = float((cf[:FRAME_TRIALS].cpu() - cpu["contact_force"]).abs().max())
+    if d_pos > 1e-4 or d_force > 1e-4 * float(cpu["contact_force"].abs().max()):
+        raise AssertionError(f"(i): card vs CPU rollout: pos {d_pos!r}, force {d_force!r}")
+    host_gaps = []
+    for trial in range(2):
+        traj_h, force_h = host_rollout(quat[trial, row[obj]], steps)
+        traj_d = pos[trial].cpu().numpy()
+        force_d = cf[trial, :, row[obj], slot].cpu().numpy()
+        np.testing.assert_allclose(traj_d, traj_h, atol=2e-3)
+        np.testing.assert_allclose(traj_d[-1], traj_h[-1], atol=5e-4)
+        np.testing.assert_allclose(force_d[-50:], force_h[-50:], rtol=1e-4)
+        host_gaps.append(float(np.abs(traj_d - traj_h).max()))
+    say(f"[5/6] (i) rollout: exp_1 (sensor + one box, {len(ids)} bodies), {k} trials x "
+        f"{steps} steps: card vs CPU (8 trials) max |d pos| {d_pos!r}, max |d force| "
+        f"{d_force!r}; card vs the host engine (2 trials) max |d pos| {max(host_gaps)!r} "
+        f"(atol 2e-3, resting force rtol 1e-4)")
+
+    # --- the frames of 8 trials x 50 snapshots ---
+    sensor._update_pose()
+    sensor._update_sensor()
+    rc = RaycastTorch.from_camera(sensor.camera)
+    tac = TactileRendererTorch.cached_from_sensor(sensor)
+    _, static, _ = capture_scene(backend)
+    box_rows = [row[int(i)] for i in static["box_id"]]
+    sph_rows = [row[int(i)] for i in static["sph_id"]]
+    snaps = [t for t in range(steps) if (t + 1) % INTERVAL == 0]
+    sel_k = torch.tensor([tr for tr in range(FRAME_TRIALS) for _ in snaps], device=dev)
+    sel_t = torch.tensor([t for _ in range(FRAME_TRIALS) for t in snaps], device=dev)
+    pos_f = pos[sel_k, sel_t]                                  # (F, NB, 3), on the card
+    quat_f = torch.as_tensor(quat, dtype=torch.float32, device=dev)[sel_k]
+    n_frames = len(sel_k)
+    cam = RaycastTorch.capture_camera_state(sensor.camera)
+    tac_state = TactileRendererTorch.capture_frame_state(sensor)
+    mbd = float(sensor.max_buffer_depth)
+
+    def chunk(lo, hi, on=dev, rc=rc, tac=tac):
+        n = hi - lo
+        scene = dict(static, sph_pos=pos_f[lo:hi, sph_rows].to(on),
+                     box_pos=pos_f[lo:hi, box_rows].to(on), box_q=quat_f[lo:hi, box_rows].to(on))
+        states = {key: np.stack([v] * n) for key, v in zip(("m_inv", "eye", "forward"), cam)}
+        rgb, depth_clip, depth_png, seg_png = rc.render_frames_packed(
+            states, scene, mbd, np.full(n, obj))
+        tactile = tac.render_frames(depth_clip, *(np.stack([v] * n) for v in tac_state))
+        return {"rgb": rgb, "depth_clip": depth_clip, "depth_png": depth_png,
+                "seg_png": seg_png, "tactile": tactile}
+
+    chunk(0, CHUNK)                  # warm: the kernels and the allocator's blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    render_ms = []
+    for _ in range(3):
+        frames = None                                          # free the last pass's
+        t0 = time.perf_counter()
+        frames = [chunk(lo, min(lo + CHUNK, n_frames)) for lo in range(0, n_frames, CHUNK)]
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    host = {key: torch.cat([f[key] for f in frames]).cpu().numpy()
+            for key in ("rgb", "depth_png", "seg_png", "tactile")}
+    download_s = time.perf_counter() - t0
+    first = {key: v.clone() for key, v in frames[0].items()}
+    del frames
+    again = chunk(0, CHUNK)
+    rerun_equal = all(torch.equal(first[key], again[key]) for key in first)
+    del again
+    if not rerun_equal:
+        raise AssertionError("(i): a rerun of the first chunk differs")
+    cpu_rc = RaycastTorch.from_camera(sensor.camera, device="cpu")
+    cpu_tac = TactileRendererTorch.from_sensor(sensor, device="cpu")
+    want = chunk(0, CHUNK, on=torch.device("cpu"), rc=cpu_rc, tac=cpu_tac)
+    got = {key: v.cpu() for key, v in first.items()}
+    agree = got["seg_png"] == want["seg_png"]
+    seg_share = 1.0 - float(agree.float().mean())
+    depth_gap = float((got["depth_clip"] - want["depth_clip"]).abs()[agree].max())
+    apart = lambda key: float(((got[key].int() - want[key].int()).abs() > 1)  # noqa: E731
+                              .float().mean())
+    rgb_share, tac_share = apart("rgb"), apart("tactile")
+    if seg_share > 1e-3 or depth_gap > 1e-5 or rgb_share > 1e-4 or tac_share > 1e-4:
+        raise AssertionError(f"(i): card vs CPU chunk: seg mismatch {seg_share!r}, depth "
+                             f"{depth_gap!r}, rgb {rgb_share!r}, tactile {tac_share!r}")
+    # what comes out: the object in every frame, seg only background (1) or the
+    # object (id 2 -> 254), and a tactile imprint once the object rests
+    seg_vals = set(np.unique(host["seg_png"]).tolist())
+    visible = (host["seg_png"] == (obj * 255) % 256).reshape(n_frames, -1).any(1)
+    tac_frames = host["tactile"].reshape(FRAME_TRIALS, len(snaps), -1)
+    touched = [not np.array_equal(t[0], t[-1]) for t in tac_frames]
+    if seg_vals - {1, (obj * 255) % 256} or not visible.all() or not all(touched):
+        raise AssertionError(f"(i) frames: seg values {seg_vals}, object visible in "
+                             f"{visible.mean():.1%} of frames, contact imprint {touched}")
+    fprof, _ = device_profile(lambda: chunk(0, CHUNK), f"(i) one chunk of {CHUNK} frames")
+    launches = read_counters(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"(i): kernel launches {launches}, expected none")
+    fps = [n_frames / ms * 1e3 for ms in render_ms]
+    say(f"[5/6] (i) frames: {n_frames} at 640 x 480 (raycast RGB, depth, seg + tactile) in "
+        f"chunks of {CHUNK} on {card}, three passes: "
+        + " / ".join(f"{ms:.1f} ms ({f:.1f} frames/s)" for ms, f in zip(render_ms, fps))
+        + f"; the uint8 payloads downloaded in {download_s * 1e3:.1f} ms; peak "
+        f"{peak_gib:.2f} GiB; rerun bit-identical; card vs CPU (one chunk): seg mismatch "
+        f"{seg_share!r}, depth max gap {depth_gap!r} where seg agrees, bytes more than 1 "
+        f"apart: rgb {rgb_share!r}, tactile {tac_share!r}; launches {launches}")
+    return {"rollouts": rollouts, "card_vs_cpu_pos": d_pos,
+            "card_vs_cpu_force": d_force, "card_vs_host_pos": max(host_gaps),
+            "frames": n_frames, "render_ms": render_ms, "frames_per_s": fps,
+            "download_ms": download_s * 1e3, "peak_gib": peak_gib,
+            "frames_profile": fprof, "seg_mismatch": seg_share, "depth_gap": depth_gap,
+            "rgb_apart": rgb_share, "tactile_apart": tac_share, "launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result",
@@ -1217,6 +1596,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_path(kernels, card, paths["seq_modeling"]["frames_per_s"], Path(tmp))
         serve = serve_path(kernels, card, Path(tmp))
+        corpus = corpus_path(kernels, card, Path(tmp))
+    datagen = datagen_path(kernels, card)
 
     for e in entries:
         # the bf16 kernel's main path is (d), the others' (a)
@@ -1225,11 +1606,14 @@ def main():
         e["launches_by_path"] = {name: p["launches"][e["name"]] for name, p in paths.items()}
         e["launches_by_path"]["cli"] = cli["launches"][e["name"]]
         e["launches_by_path"]["serve"] = serve["launches"][e["name"]]
+        e["launches_by_path"]["corpus"] = corpus["launches"][e["name"]]
+        e["launches_by_path"]["datagen"] = datagen["launches"][e["name"]]
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
     say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (
         "step_ms", "frames_per_s", "peak_gib", "busy_share", "conv_share") if k in p}
-        for name, p in paths.items()}, "cli": cli, "serve": serve}))
+        for name, p in paths.items()}, "cli": cli, "serve": serve, "corpus": corpus,
+        "datagen": datagen}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

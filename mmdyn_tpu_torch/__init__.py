@@ -10,6 +10,11 @@ same path:
 * ``mmdyn_tpu_torch.problems`` — problem config, batch parsing and
   augmentation, the losses of every family.
 * ``mmdyn_tpu_torch.train``    — train state and the train / eval / sample steps.
+* ``mmdyn_tpu_torch.data``     — compiling simulator dumps into a corpus, the
+  corpus reader, the splits and the loader.
+* ``mmdyn_tpu_torch.serve``    — the inference session, export, the HTTP server.
+* ``mmdyn_tpu_torch.sim``      — the simulator's host scene code and its batched
+  device half (rollouts, raycast and tactile frames).
 * ``mmdyn_tpu_torch.utils``    — device resolution, weights carried over from
   the JAX package's flax parameters.
 

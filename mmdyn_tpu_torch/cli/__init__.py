@@ -1,2 +1,3 @@
-"""Command-line entry points: training (``main``) and offline evaluation
-(``evaluate``)."""
+"""Command-line entry points: training (``main``), offline evaluation
+(``evaluate``), serving (``infer``, ``serve``) and synthetic data
+(``make_synthetic``)."""

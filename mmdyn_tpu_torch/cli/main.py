@@ -5,8 +5,10 @@
         --model-name cnn-mvae --input-type visuotactile --use-pose \\
         --dataset-path ~/dataset --batchsize 128 --num-epochs 100
 
-It trains on the card; ``--platform cpu`` selects the CPU. The dataset
-directory must hold a compiled corpus (``data/compile.py``).
+It trains on the card; ``--platform cpu`` selects the CPU. A dataset
+directory without a compiled corpus is compiled from its simulator dumps
+first (``data/compile.py``; ``--no-strict-parity`` keeps the last sequence
+that the reference drops).
 """
 
 import argparse
@@ -58,8 +60,8 @@ def build_parser():
     parser.add_argument("--logs-root", default="./logs", type=str)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--no-strict-parity", action="store_true", default=False,
-                        help="(applies to compiling a corpus, which this package "
-                             "does not do yet)")
+                        help="Compile without the reference's quirks (keep the "
+                             "final sequence)")
     parser.add_argument("--no-crop", action="store_true", default=False,
                         help="Train on the corpus compiled WITHOUT the reference's "
                              "seg-bbox re-crop (datasets.py:347-366)")
@@ -136,6 +138,7 @@ def main(argv=None):
     problem = Problem(cfg, args.dataset_path, save_name=args.save_name,
                       logs_root=args.logs_root, log_dir=args.log_dir, seed=args.seed,
                       device=device, tensorboard=not args.no_tensorboard,
+                      strict_parity=not args.no_strict_parity,
                       no_crop=args.no_crop, resume=args.resume,
                       profile_dir=args.profile_dir, image_interval=args.image_interval,
                       ckpt_interval=args.ckpt_interval, vis_pose=args.vis_pose)

@@ -1,7 +1,9 @@
 """Train / test splits of a compiled corpus and their loaders (port of
 ``mmdyn_tpu/data/dataset.py``; reference mmdyn/pytorch/utils/datasets.py:
 20-108). Frames stay uint8 on the host and become float32 / 255 on the
-device (``data/loader.py::to_device_batch``)."""
+device (``data/loader.py::to_device_batch``). A dataset directory without a
+corpus is compiled from its simulator dumps first, on the host, as the JAX
+package does (``data/compile.py``)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mmdyn_tpu_torch.data.compile import compiled_name_for, load_packed
+from mmdyn_tpu_torch.data.compile import compile_dataset, compiled_name_for, load_packed
 from mmdyn_tpu_torch.data.loader import BatchLoader
 
 
@@ -20,11 +22,20 @@ class VisuoTactileArrays:
 
     The split is the reference's (datasets.py:100-108): the first 80% train,
     ``[frac:-1]`` test, so the test split drops the corpus's last sequence.
+    A missing corpus is compiled from the directory's dumps, with
+    ``strict_parity`` and ``crop``.
     """
 
-    def __init__(self, dataset_path, train=True, crop=True):
+    def __init__(self, dataset_path, train=True, train_frac=0.8, compiled_name=None,
+                 strict_parity=True, mmap=True, crop=True):
         root = Path(os.path.expanduser(str(dataset_path)))
-        arrays = load_packed(root / compiled_name_for(crop))
+        if compiled_name is None:
+            compiled_name = compiled_name_for(crop)
+        packed_path = root / compiled_name
+        if not packed_path.exists():
+            compile_dataset(root, strict_parity=strict_parity,
+                            compiled_name=compiled_name, crop=crop)
+        arrays = load_packed(packed_path, mmap=mmap)
         self.seq_length = int(arrays.pop("seq_length"))
         self.has_shock = bool(arrays.pop("has_shock", False))
         self.crop = bool(arrays.pop("crop", True))
@@ -33,7 +44,7 @@ class VisuoTactileArrays:
                       for k in ("pose_min", "pose_max", "shock_min", "shock_max")
                       if k in arrays}
         n = arrays["visual"].shape[0]
-        frac_index = int(0.8 * n)
+        frac_index = int(train_frac * n)
         sl = slice(0, frac_index) if train else slice(frac_index, n - 1)
         self.arrays = {k: v[sl] for k, v in arrays.items()}
 
@@ -58,8 +69,8 @@ def process_grid():
     return 0, 1
 
 
-def dataset_setup(dataset_path, problem_type, batchsize=128, seed=0, mask_loss=True,
-                  crop=True):
+def dataset_setup(dataset_path, problem_type, batchsize=128, seed=0, strict_parity=True,
+                  mask_loss=True, crop=True):
     """Train / test splits and their loaders (datasets.py:20-66).
 
     Both loaders drop the last incomplete batch; only the train loader
@@ -67,10 +78,13 @@ def dataset_setup(dataset_path, problem_type, batchsize=128, seed=0, mask_loss=T
     (problems.py:648), so their loaders gather one frame; the seg masks are
     skipped unless the loss is masked. Under ``torch.distributed`` every
     process walks the same seeded global order and gathers its own row block.
+    A missing corpus is compiled first, with ``strict_parity``.
     """
     print(f"Loading dataset from {dataset_path}" + ("" if crop else " (no-crop variant)"))
-    train_dataset = VisuoTactileArrays(dataset_path, train=True, crop=crop)
-    test_dataset = VisuoTactileArrays(dataset_path, train=False, crop=crop)
+    train_dataset = VisuoTactileArrays(dataset_path, train=True,
+                                       strict_parity=strict_parity, crop=crop)
+    test_dataset = VisuoTactileArrays(dataset_path, train=False,
+                                      strict_parity=strict_parity, crop=crop)
     frames = 1 if problem_type in ("seq_modeling", "regression") else None
     skip = () if mask_loss else ("seg",)
     pidx, pcnt = process_grid()

@@ -55,8 +55,8 @@ class Problem:
 
     def __init__(self, cfg: ProblemConfig, dataset_path, save_name="run",
                  logs_root="./logs", log_dir=None, seed=0, device=None,
-                 tensorboard=True, resume=False, profile_dir=None, image_interval=1,
-                 ckpt_interval=1, vis_pose=False, no_crop=False):
+                 tensorboard=True, strict_parity=True, resume=False, profile_dir=None,
+                 image_interval=1, ckpt_interval=1, vis_pose=False, no_crop=False):
         self.device = resolve_device(device)
         self.seed = seed
         self.profile_dir = profile_dir
@@ -88,8 +88,10 @@ class Problem:
         self.writer = MetricWriter(self.tensorboard_dir, tensorboard=tensorboard)
 
         # --- corpus ---
+        # a dataset directory without a corpus is compiled here, on the host
         dd = dataset_setup(dataset_path, cfg.problem_type, batchsize=cfg.batchsize,
-                           seed=seed, mask_loss=cfg.mask_loss, crop=not no_crop)
+                           seed=seed, strict_parity=strict_parity,
+                           mask_loss=cfg.mask_loss, crop=not no_crop)
         self.train_dataset, self.test_dataset = dd["train_dataset"], dd["test_dataset"]
         self.train_loader, self.test_loader = dd["train_loader"], dd["test_loader"]
         self.seq_length = dd["seq_length"]

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,6 +17,30 @@ def resolve_device(device=None) -> torch.device:
                 "port's plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device: a card without an index
+    (``cuda``, as ``resolve_device`` gives it) is the current card, where
+    its tensors lie (``cuda:0``)."""
+    if a.type != b.type:
+        return False
+
+    def index(d):
+        return torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
+
+    return index(a) == index(b)
+
+
+def as_device_tensor(a, dtype, device) -> torch.Tensor:
+    """``a`` as a ``dtype`` tensor on ``device``: numpy is uploaded; a tensor
+    on another device is refused rather than moved, so work meant for the
+    card never runs elsewhere unasked."""
+    if isinstance(a, torch.Tensor):
+        if not same_device(a.device, device):
+            raise ValueError(f"a tensor on {a.device} given to a module on {device}")
+        return a.to(dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 def device_for_platform(platform) -> torch.device:

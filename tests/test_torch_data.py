@@ -1,6 +1,7 @@
 """Port parity: ``mmdyn_tpu_torch.data`` against ``mmdyn_tpu.data``, on small
 synthetic corpora written by both packages from the same seed."""
 
+import re
 import threading
 
 import numpy as np
@@ -75,8 +76,13 @@ def test_make_compiled_arrays_matches_jax(tmp_path, packed_dir, with_shock):
 
 
 def test_missing_corpus_names_the_file(tmp_path):
-    with pytest.raises(FileNotFoundError, match="compiled_dataset_v2_nocrop.npz.*not ported"):
-        tdataset.VisuoTactileArrays(tmp_path, crop=False)
+    """No corpus and no dumps: the compile that the missing corpus starts
+    names the dump directory it searched, as the JAX package's does."""
+    msg = re.escape(f"no data.json under {tmp_path / 'dataset'}")
+    for package in (tdataset, jdataset):
+        with pytest.raises(AssertionError, match=msg):
+            package.VisuoTactileArrays(tmp_path, crop=False)
+    assert not (tmp_path / tcompile.NOCROP_NAME).exists()
 
 
 @pytest.mark.parametrize("train", [True, False])
