@@ -119,6 +119,22 @@ Phases, any failure raises and exits non-zero:
        tactile bytes more than 1 apart <= 1e-4 each) and rerun bit for bit;
        one chunk profiled (device time by kernel family). No kernel of the
        port launches.
+   (j) the simulator's dump CLIs (``mmdyn_tpu_torch/cli``), where cv2
+       imports (it writes the PNGs; without it (j) fails): (j1) the
+       run-length wire (``utils/wire.py``) on (i)'s first chunk of 128
+       frames, folded as ``DeferredFrames`` folds it into two int32 streams
+       of 128 x 307,200 (row breaks at 640, 4 planes): encode device ms and
+       host enqueue, runs, wire MB against raw MB, ``get_raw`` against the
+       pageable raw download, the host decode, peak GiB; decoded equal to
+       downloaded bit for bit; one encode profiled. (j2) ``exp_1_flat_plane
+       --device-physics`` in process at its defaults (500 steps, interval 10,
+       10 trials) on 2 objects (8 cut to 2), ``MMDYN_GEN_TRACE=1``: wall
+       seconds, trials/s, snapshots written/s, the stage split; every kept
+       sequence 50 snapshots and 50 PNGs of each stream; the native compile
+       of the dumps (kept - 1) x 50 frames. (j3) ``demo`` and ``exp_{1,2,3}``
+       with ``--device-physics`` against their host paths, and ``demo
+       --device-render``, at the JAX tests' argv and bounds. No kernel of the
+       port launches.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -128,8 +144,10 @@ Without a CUDA device the script prints no result and exits 1.
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1519,7 +1537,229 @@ def datagen_path(kernels, card):
             "frames": n_frames, "render_ms": render_ms, "frames_per_s": fps,
             "download_ms": download_s * 1e3, "peak_gib": peak_gib,
             "frames_profile": fprof, "seg_mismatch": seg_share, "depth_gap": depth_gap,
-            "rgb_apart": rgb_share, "tactile_apart": tac_share, "launches": launches}
+            "rgb_apart": rgb_share, "tactile_apart": tac_share, "launches": launches,
+            "_chunk": first}
+
+
+GEN_OBJECTS = 2                  # (j2): exp_1's --n_objects cut from 8
+GEN_SNAPSHOTS = DROP_STEPS // INTERVAL
+# (j3): the argv of the JAX package's CLI tests (tests/test_physics_jax.py:131-225)
+PARITY_ARGV = {
+    "exp_1_flat_plane": ["--n_objects", "2", "--trial_per_obj", "1", "--n_timesteps", "40",
+                         "--interval", "10", "--seed", "5"],
+    "exp_2_inclined_plane": ["--n_objects", "1", "--trial_per_obj", "2", "--n_timesteps",
+                             "60", "--interval", "10", "--seed", "4", "--slope", "0.2"],
+    "exp_3_force_pert": ["--n_objects", "1", "--trial_per_obj", "2", "--n_timesteps", "200",
+                         "--interval", "10", "--snapshot_from", "100", "--seed", "9",
+                         "--force", "0.05"],
+    "demo": ["--n_timesteps", "60", "--interval", "10", "--object", "winebottle"],
+}
+
+
+def wire_path(frames, card):
+    """(j1): the run-length wire on one 128-frame chunk of (i), folded as
+    ``DeferredFrames._dispatch_chunk`` folds it (``rgb | depth_png << 24``,
+    ``tactile | seg_png << 24``, row_len 640, planes 4): encode (device ms
+    between CUDA events, and the host's enqueue), ``get_raw`` against the
+    pageable download of the raw streams, the host decode; the decoded
+    streams must equal the downloaded ones bit for bit."""
+    from mmdyn_tpu_torch.utils.wire import RunLengthWire, pack_rgb
+
+    n, h, wd = frames["rgb"].shape[:3]
+    s0 = pack_rgb(frames["rgb"]) | (frames["depth_png"].to(torch.int32).reshape(n, -1) << 24)
+    s1 = pack_rgb(frames["tactile"]) | (frames["seg_png"].to(torch.int32).reshape(n, -1) << 24)
+    wire = RunLengthWire()
+    wire.get_raw(wire.encode([s0, s1], row_len=wd, planes=4))     # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    encode_ms, enqueue_ms, get_raw_ms, raw_dl_ms = [], [], [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        handle = wire.encode([s0, s1], row_len=wd, planes=4)
+        end.record()
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        encode_ms.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        raw = wire.get_raw(handle)
+        get_raw_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        plain = [s.cpu().numpy().view(np.uint32) for s in (s0, s1)]
+        raw_dl_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    decoded = RunLengthWire.decode(raw)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    if "fallback" in raw or not all(np.array_equal(a, b) for a, b in zip(decoded, plain)):
+        raise AssertionError("(j1): the decoded streams differ from the downloaded ones")
+    runs = int(handle["n_runs"])
+    wire_mb, raw_mb = runs * 6 / 1e6, sum(s.numel() * 4 for s in (s0, s1)) / 1e6
+    prof, _ = device_profile(lambda: wire.encode([s0, s1], row_len=wd, planes=4),
+                             f"(j1) encode of one chunk of {n} frames")
+    say(f"[5/6] (j1) wire on {card}: {n} frames x 2 streams ({n * h * wd * 2:,} elements): "
+        f"encode {' / '.join(f'{x:.2f}' for x in encode_ms)} ms on the device (host enqueue "
+        f"{' / '.join(f'{x:.2f}' for x in enqueue_ms)} ms); {runs:,} runs, {wire_mb:.2f} MB "
+        f"on the wire against {raw_mb:.1f} MB raw; get_raw "
+        f"{' / '.join(f'{x:.1f}' for x in get_raw_ms)} ms against the pageable raw download "
+        f"{' / '.join(f'{x:.1f}' for x in raw_dl_ms)} ms; host decode {decode_ms:.1f} ms; "
+        f"peak {peak_gib:.2f} GiB; decoded == downloaded bit for bit")
+    return {"frames": n, "encode_ms": encode_ms, "enqueue_ms": enqueue_ms, "runs": runs,
+            "wire_mb": wire_mb, "raw_mb": raw_mb, "get_raw_ms": get_raw_ms,
+            "raw_download_ms": raw_dl_ms, "decode_ms": decode_ms, "peak_gib": peak_gib,
+            "encode_profile": prof}
+
+
+def gen_path(card, tmp):
+    """(j2): exp_1 through the port's CLI in process at its defaults
+    (--n_timesteps 500 --interval 10 --trial_per_obj 10) with --device-physics
+    on the card, the object count cut to ``GEN_OBJECTS``, under
+    ``MMDYN_GEN_TRACE=1``; every kept sequence must hold 50 snapshots of each
+    stream; then the native compile of the dumps must give (kept - 1)
+    sequences of 50 frames."""
+    import cv2
+
+    from mmdyn_tpu_torch.cli import exp_1_flat_plane
+    from mmdyn_tpu_torch.data.compile import compile_dataset, load_packed
+
+    gen = tmp / "gen"
+    argv = ["--device-physics", "--engine", "analytic", "--headless", "--seed", "0",
+            "--n_objects", str(GEN_OBJECTS), "--logdir", str(gen / "dataset")]
+    trace = io.StringIO()
+    old = os.environ.get("MMDYN_GEN_TRACE")
+    os.environ["MMDYN_GEN_TRACE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(trace):
+            exp_1_flat_plane.main(argv)
+        wall_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["MMDYN_GEN_TRACE"]
+        else:
+            os.environ["MMDYN_GEN_TRACE"] = old
+    lines = [ln for ln in trace.getvalue().splitlines() if ln.startswith("# ")]
+    stages = {}
+    for ln in lines:
+        if ln.startswith("# gen-trace"):
+            for part in ln.split(": ", 1)[1].split()[1:]:
+                key, val = part.split("=")
+                stages[key] = stages.get(key, 0.0) + float(val.rstrip("s"))
+    seqs = sorted((gen / "dataset").glob("*/*/sequence_*"))
+    for seq in seqs:
+        data = json.loads((seq / "data.json").read_text())
+        counts = [len(list(seq.glob(f"{stem}_*.png")))
+                  for stem in ("visual", "tactile", "seg", "depth")]
+        if len(data["time_step"]) != GEN_SNAPSHOTS or counts != [GEN_SNAPSHOTS] * 4:
+            raise AssertionError(f"(j2): {seq}: {len(data['time_step'])} snapshots, PNGs {counts}")
+    img = cv2.imread(str(seqs[0] / f"visual_{GEN_SNAPSHOTS - 1:04d}.png"))
+    if len(seqs) < 2 or img is None or img.shape != (480, 640, 3):
+        raise AssertionError(f"(j2): {len(seqs)} sequences kept; a visual PNG reads "
+                             f"{None if img is None else img.shape}")
+    trials = GEN_OBJECTS * 10
+    t0 = time.perf_counter()
+    corpus = load_packed(compile_dataset(gen, seed=0, engine="native", verbose=False,
+                                         compiled_name="compiled.npz"))
+    compile_s = time.perf_counter() - t0
+    if corpus["visual"].shape != (len(seqs) - 1, GEN_SNAPSHOTS, 64, 64, 3):
+        raise AssertionError(f"(j2): the compiled corpus is {corpus['visual'].shape}")
+    snaps = len(seqs) * GEN_SNAPSHOTS
+    for ln in lines:
+        say(f"  {ln}")
+    say(f"[5/6] (j2) exp_1 --device-physics on {card}: {GEN_OBJECTS} objects x 10 trials x "
+        f"{DROP_STEPS} steps in {wall_s:.2f} s ({trials / wall_s:.2f} trials/s); "
+        f"{len(seqs)} sequences kept, {snaps} snapshots x 4 PNGs ({snaps / wall_s:.1f} "
+        f"snapshots written/s); stages summed: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+        + f"; the native compile of the dumps: {corpus['visual'].shape[0]} sequences x "
+        f"{GEN_SNAPSHOTS} frames in {compile_s:.2f} s")
+    return {"wall_s": wall_s, "trials_per_s": trials / wall_s, "sequences": len(seqs),
+            "snapshots_per_s": snaps / wall_s, "stages_s": stages, "compile_s": compile_s}
+
+
+def parity_path(tmp):
+    """(j3): demo and exp_{1,2,3} with --device-physics (on the card) against
+    their own host paths, and demo --device-render, at the argv and bounds of
+    the JAX package's tests (tests/test_physics_jax.py:131-225,
+    tests/test_tactile_jax.py:62-94)."""
+    import importlib
+
+    import cv2
+
+    seconds = {}
+    for cli, argv in PARITY_ARGV.items():
+        main = importlib.import_module(f"mmdyn_tpu_torch.cli.{cli}").main
+        argv = argv + ["--engine", "analytic", "--headless"]
+        host, dev = tmp / cli / "host", tmp / cli / "dev"
+        main(argv + ["--logdir", str(host)])
+        t0 = time.perf_counter()
+        main(argv + ["--device-physics", "--logdir", str(dev)])
+        seconds[cli] = time.perf_counter() - t0
+        host_seqs = sorted(p.parent for p in host.glob("**/data.json"))
+        dev_seqs = sorted(p.parent for p in dev.glob("**/data.json"))
+        if not host_seqs or [s.relative_to(host) for s in host_seqs] != \
+                [s.relative_to(dev) for s in dev_seqs]:
+            raise AssertionError(f"(j3) {cli}: layouts differ")
+        atol = 2e-3 if cli in ("exp_1_flat_plane", "demo") else 5e-3
+        for hs, ds in zip(host_seqs, dev_seqs):
+            dh = json.loads((hs / "data.json").read_text())
+            dd = json.loads((ds / "data.json").read_text())
+            assert dh["time_step"] == dd["time_step"], (cli, hs)
+            np.testing.assert_allclose(dd["position"], dh["position"], atol=atol)
+            np.testing.assert_allclose(dd["orientation"], dh["orientation"], atol=1e-6)
+            if "force" in dh:
+                np.testing.assert_allclose(dd["force"], dh["force"], rtol=0.05, atol=1.0)
+            if "shock" in dh:
+                np.testing.assert_allclose(dd["shock"], dh["shock"], rtol=1e-12)
+            last = len(dh["time_step"]) - 1
+            for stem in ("visual", "tactile", "seg", "depth"):
+                if not (ds / f"{stem}_{last:04d}.png").exists():
+                    raise AssertionError(f"(j3) {cli}: no {stem}_{last:04d}.png in {ds}")
+    # demo --device-render against the host path (tests/test_tactile_jax.py:62-94)
+    from mmdyn_tpu_torch.cli import demo
+
+    argv = ["--headless", "--engine", "analytic", "--n_timesteps", "120", "--interval", "20",
+            "--seed", "3", "--object", "bowl"]
+    host, dev = tmp / "render" / "host" / "dataset", tmp / "render" / "dev" / "dataset"
+    demo.main(argv + ["--logdir", str(host.parent)])
+    t0 = time.perf_counter()
+    demo.main(argv + ["--device-render", "--logdir", str(dev.parent)])
+    seconds["demo --device-render"] = time.perf_counter() - t0
+    worst = {"within_1": 1.0, "depth": 0, "seg": 0.0}
+    for k in range(6):
+        for stream in ("tactile", "visual"):
+            a, b = (cv2.imread(str(d / f"{stream}_{k:04d}.png")).astype(int) for d in (host, dev))
+            worst["within_1"] = min(worst["within_1"], float((np.abs(a - b) <= 1).mean()))
+        a, b = (cv2.imread(str(d / f"depth_{k:04d}.png")).astype(int) for d in (host, dev))
+        worst["depth"] = max(worst["depth"], int(np.abs(a - b).max()))
+        a, b = (cv2.imread(str(d / f"seg_{k:04d}.png")) for d in (host, dev))
+        worst["seg"] = max(worst["seg"], float((a != b).mean()))
+    if worst["within_1"] <= 0.998 or worst["depth"] > 1 or worst["seg"] >= 0.002:
+        raise AssertionError(f"(j3) demo --device-render against the host path: {worst}")
+    say("[5/6] (j3) device paths against the host paths at the JAX tests' argv and bounds: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + f"; demo --device-render: visual / tactile within 1 on >= {worst['within_1']:.5f}, "
+        f"depth within {worst['depth']}, seg mismatch {worst['seg']!r}")
+    return {"device_s": seconds, "render_worst": worst}
+
+
+def simcli_path(kernels, card, frames, tmp):
+    """(j): the simulator's dump CLIs on the card, the kernel counters set to
+    0 before and read after: (j1) the wire, (j2) exp_1's data generation
+    through the CLI, (j3) the device paths against the host paths. No kernel
+    of the port launches."""
+    t0 = time.perf_counter()
+    reset_counters(kernels)
+    out = {"wire": wire_path(frames, card), "gen": gen_path(card, tmp),
+           "parity": parity_path(tmp)}
+    out["launches"] = read_counters(kernels)
+    if any(out["launches"].values()):
+        raise AssertionError(f"(j): kernel launches {out['launches']}, expected none")
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[5/6] (j) the dump CLIs took {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
 
 
 def main():
@@ -1598,6 +1838,8 @@ def main():
         serve = serve_path(kernels, card, Path(tmp))
         corpus = corpus_path(kernels, card, Path(tmp))
     datagen = datagen_path(kernels, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        simcli = simcli_path(kernels, card, datagen.pop("_chunk"), Path(tmp))
 
     for e in entries:
         # the bf16 kernel's main path is (d), the others' (a)
@@ -1608,12 +1850,13 @@ def main():
         e["launches_by_path"]["serve"] = serve["launches"][e["name"]]
         e["launches_by_path"]["corpus"] = corpus["launches"][e["name"]]
         e["launches_by_path"]["datagen"] = datagen["launches"][e["name"]]
+        e["launches_by_path"]["simcli"] = simcli["launches"][e["name"]]
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
     say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (
         "step_ms", "frames_per_s", "peak_gib", "busy_share", "conv_share") if k in p}
         for name, p in paths.items()}, "cli": cli, "serve": serve, "corpus": corpus,
-        "datagen": datagen}))
+        "datagen": datagen, "simcli": simcli}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ same path:
 * ``mmdyn_tpu_torch.sim``      — the simulator's host scene code and its batched
   device half (rollouts, raycast and tactile frames).
 * ``mmdyn_tpu_torch.utils``    — device resolution, weights carried over from
-  the JAX package's flax parameters.
+  the JAX package's flax parameters, the run-length wire of the dumps.
+* ``mmdyn_tpu_torch.cli``      — the training, evaluation, serving and data
+  collection (simulator) entry points.
 
 The port imports torch and numpy only. Its entry points place everything on
 ``cuda`` unless the caller passes ``device="cpu"``.

@@ -95,10 +95,14 @@ class Sensor:
                      simple_model):
         from mmdyn_tpu_torch.sim.physics import PyBulletBackend
         if isinstance(self.backend, PyBulletBackend):
-            # the URDF / mesh loader (sim/pybullet_utils) is not in the port
-            raise NotImplementedError(
-                "PyBullet sensor bodies need sim/pybullet_utils, which the "
-                "PyTorch port does not carry; use the analytic engine")
+            from mmdyn_tpu_torch.sim.pybullet_utils import add_object
+            model = "cube.obj"  # simple_model path (sensor.py:48-49, :531)
+            return add_object(self.backend, graphic_file=model,
+                              collision_file=model, base_position=position,
+                              base_orientation=orientation,
+                              mesh_scale=mesh_scale, mass=mass,
+                              color=[x for x in color] + [1.0],
+                              virtual_links=self._virtual_links)
         # analytic: a box with half-extents = size/2 (cube.obj is a unit cube
         # scaled by mesh_scale); heavy sensors are pinned, light ones (the
         # force-perturbation scenario, exp_3 mass=100) stay dynamic

@@ -66,6 +66,10 @@ assert not bad, bad
     ("main", ("--dataset-path", "--bf16-full")),
     ("infer", ("--torch-ckpt", "--rollout", "--export", "--calibrate", "--no-pose")),
     ("serve", ("--microbatch-wait-ms", "--calibrate", "--port")),
+    ("demo", ("--device-physics", "--device-render", "--object")),
+    ("exp_1_flat_plane", ("--device-physics", "--device-render", "--workers")),
+    ("exp_2_inclined_plane", ("--device-physics", "--device-render", "--slope")),
+    ("exp_3_force_pert", ("--device-physics", "--device-render", "--snapshot_from")),
 ])
 def test_cli_help_loads_no_jax(cli, flags):
     """``python -m mmdyn_tpu_torch.cli.<cli> --help`` in a fresh interpreter
