@@ -135,6 +135,34 @@ Phases, any failure raises and exits non-zero:
        with ``--device-physics`` against their host paths, and ``demo
        --device-render``, at the JAX tests' argv and bounds. No kernel of the
        port launches.
+   (k) the tools (``mmdyn_tpu_torch/tools``), where Pillow and cv2 import
+       (without them (k) fails), in two parts. After (g), in (f)'s temporary
+       directory: (k0) a shock corpus of 520 sequences x 4 frames
+       (``make_compiled_arrays``, packed directory) and four runs trained on
+       it through ``cli.main`` on the card, 1 epoch at batch 64, float32,
+       latent 256: the regressor, cnn-mvae visuotactile + pose on
+       seq_modeling and on dyn_modeling, and the conditional cnn-mvae
+       (visuotactile + pose, the shock as condition), the counters read
+       around each run (MVAE: 1 PoE and 2 BCE launches per forward; the
+       regressor none), and simulator-shaped dumps of 2 sequences x 10
+       frames at 480 x 640; (k1) ``bench_infer`` on (f)'s run at batches 1,
+       8, 64 and 256, 30 iterations, rollout 50; (k2) ``bench_http`` on
+       (f)'s run at its defaults (8 clients x 40 requests, batch 16, waits
+       of 0 and 5 ms, 8 calibration frames); (k3) ``rollout_eval`` of the
+       dyn run and ``counterfactual`` of the conditional run (sweep 0, 0.25,
+       0.5, 0.75, 1) on the dumps, every number finite, the condition
+       moving the prediction, and the card's report equal to the same
+       tool's ``--platform cpu`` report (numbers within atol 1e-4; keys,
+       booleans, counts and strings exactly); (k4) ``accuracy_suite`` of
+       the four runs on the shock corpus, four sections, every number
+       finite. After (j), in (j)'s temporary directory: (k5)
+       ``rerender_dataset`` of (j2)'s first object (10 sequences x 50
+       frames at 640 x 480), batch 128: every frame within a mean of 6
+       counts of the dumped tactile frame, and the read / render / write
+       split; (k6) ``bullet_diff`` of ``demo --device-physics`` against
+       itself (ok, position and image diffs 0), then ``--skip-run`` on a
+       winebottle and a bowl demo dump with tight tolerances (exit 1,
+       failures named). (k1)-(k6) launch no kernel of the port.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -1762,6 +1790,267 @@ def simcli_path(kernels, card, frames, tmp):
     return out
 
 
+# (k): the tools of mmdyn_tpu_torch/tools on the card
+SHOCK_SEQS, SHOCK_FRAMES, TOOL_BATCH = 520, 4, 64     # (k0): the shock corpus, its batch
+K0_RUNS = {   # (k0): the runs the tools evaluate, trained through cli.main
+    "reg": ["--problem-type", "regression", "--model-name", "regressor",
+            "--input-type", "visual"],
+    "seq": ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
+            "--input-type", "visuotactile", "--use-pose"],
+    "dyn": ["--problem-type", "dyn_modeling", "--model-name", "cnn-mvae",
+            "--input-type", "visuotactile", "--use-pose"],
+    "cond": ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
+             "--input-type", "visuotactile", "--use-pose", "--conditional"],
+}
+CPU = ["--platform", "cpu"]
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept out of the script's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def numbers(report, where="report"):
+    """(path, value) of every number of a nested report."""
+    if isinstance(report, dict):
+        return [x for k, v in report.items() for x in numbers(v, f"{where}.{k}")]
+    if isinstance(report, (list, tuple)):
+        return [x for i, v in enumerate(report) for x in numbers(v, f"{where}[{i}]")]
+    if isinstance(report, (int, float)) and not isinstance(report, bool):
+        return [(where, report)]
+    return []
+
+
+def report_gap(card, cpu, where="report"):
+    """The largest |card - cpu| over the numbers of two reports of one tool;
+    raises where their keys, lengths, booleans, counts or strings differ."""
+    if isinstance(cpu, dict):
+        if set(card) != set(cpu):
+            raise AssertionError(f"(k3) {where}: keys {sorted(set(card) ^ set(cpu))}")
+        return max([report_gap(card[k], cpu[k], f"{where}.{k}") for k in cpu] + [0.0])
+    if isinstance(cpu, (list, tuple)):
+        if len(card) != len(cpu):
+            raise AssertionError(f"(k3) {where}: lengths {len(card)} vs {len(cpu)}")
+        return max([report_gap(a, b, f"{where}[{i}]")
+                    for i, (a, b) in enumerate(zip(card, cpu))] + [0.0])
+    if isinstance(cpu, float):
+        return abs(card - cpu)
+    if type(card) is not type(cpu) or card != cpu:
+        raise AssertionError(f"(k3) {where}: card {card!r} vs cpu {cpu!r}")
+    return 0.0
+
+
+def train_tool_runs(kernels, tmp):
+    """(k0): a shock corpus of 520 x 4 frames written by
+    ``make_compiled_arrays``, and the four runs the tools evaluate trained on
+    it through ``cli.main`` for 1 epoch at batch 64, float32, latent 256,
+    the counters read around each (the MVAE runs launch 1 PoE and 2 BCE per
+    forward, the regressor none); then simulator-shaped dumps of 2 sequences
+    x 10 frames at 480 x 640 for (k3)."""
+    from mmdyn_tpu_torch.cli import main as cli_main
+    from mmdyn_tpu_torch.data.compile import COMPILED_NAME
+    from mmdyn_tpu_torch.data.synthetic import make_compiled_arrays, make_synthetic_dumps
+
+    t0 = time.perf_counter()
+    make_compiled_arrays(tmp / "shock" / COMPILED_NAME, n_sequences=SHOCK_SEQS,
+                         seq_length=SHOCK_FRAMES, with_shock=True, seed=0, packed_dir=True)
+    corpus_s = time.perf_counter() - t0
+    out = {"corpus_s": corpus_s, "runs": {}}
+    total = dict(ZERO_LAUNCHES)
+    for name, argv in K0_RUNS.items():
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        run = quiet(cli_main.main, argv + [
+            "--dataset-path", str(tmp / "shock"), "--batchsize", str(TOOL_BATCH),
+            "--num-epochs", "1", "--dtype", "float32", "--no-tensorboard",
+            "--log-dir", str(tmp / f"tool_{name}"), "--logs-root", str(tmp / "logs")])
+        wall_s = time.perf_counter() - t0
+        launches = read_counters(kernels)
+        forwards = len(run.train_loader) + len(run.test_loader)
+        per = 0 if name == "reg" else forwards
+        if launches != {"poe_reparam": per, "bce_sum": 2 * per, "bce_sum_bf16": 0}:
+            raise AssertionError(f"(k0) {name}: kernel launches {launches} over {forwards} "
+                                 f"forwards")
+        losses = run._logger_dict["Loss/train_epoch"] + run._logger_dict["Loss/validation_epoch"]
+        if not all(math.isfinite(v) for v in losses) or run.cfg.latent_size != 256:
+            raise AssertionError(f"(k0) {name}: losses {losses}, latent {run.cfg.latent_size}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        out["runs"][name] = {"wall_s": wall_s, "forwards": forwards, "launches": launches,
+                             "losses": losses}
+        del run
+    t0 = time.perf_counter()
+    make_synthetic_dumps(tmp / "tool_dumps", n_sequences=2, seq_length=10,
+                         image_size=(480, 640), seed=0)
+    out["dumps_s"] = time.perf_counter() - t0
+    out["launches"] = total
+    say(f"[5/6] (k0) shock corpus {SHOCK_SEQS} x {SHOCK_FRAMES} written in {corpus_s:.2f} s; "
+        f"cli.main 1 epoch at batch {TOOL_BATCH}, float32, latent 256: "
+        + "; ".join(f"{n} {r['wall_s']:.2f} s, {r['forwards']} forwards, launches "
+                    f"{r['launches']}" for n, r in out["runs"].items())
+        + f"; dumps 2 x 10 at 480 x 640 in {out['dumps_s']:.2f} s")
+    return out
+
+
+def tool_reports(tmp):
+    """(k1)-(k4): the serving benches on (f)'s run, ``rollout_eval`` and
+    ``counterfactual`` on the card and on the CPU, ``accuracy_suite`` on the
+    shock corpus. Returns the benches' rows, the card vs CPU gaps and the
+    seconds of each."""
+    from mmdyn_tpu_torch.tools import (accuracy_suite, bench_http, bench_infer,
+                                       counterfactual, rollout_eval)
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    out["bench_infer"] = quiet(bench_infer.main, ["--run", str(tmp / "run"), "--batch-sizes",
+                                                  "1,8,64,256", "--iters", "30",
+                                                  "--rollout", "50"])
+    out["seconds"]["k1"] = time.perf_counter() - t0
+    for row in out["bench_infer"]:
+        say(f"[5/6] (k1) bench_infer {json.dumps(row)}")
+
+    t0 = time.perf_counter()
+    out["bench_http"] = quiet(bench_http.main, ["--run", str(tmp / "run")])
+    out["seconds"]["k2"] = time.perf_counter() - t0
+    for row in out["bench_http"]:
+        say(f"[5/6] (k2) bench_http {json.dumps(row)}")
+
+    t0 = time.perf_counter()
+    seq = sorted(p.parent for p in (tmp / "tool_dumps").glob("**/data.json"))[0]
+    argv = {"rollout_eval": ["--run", str(tmp / "tool_dyn"), "--frames", str(seq)],
+            "counterfactual": ["--run", str(tmp / "tool_cond"), "--frames", str(seq),
+                               "--sweep", "0,0.25,0.5,0.75,1"]}
+    for name, tool in (("rollout_eval", rollout_eval), ("counterfactual", counterfactual)):
+        card = quiet(tool.main, argv[name])
+        cpu = quiet(tool.main, argv[name] + CPU)
+        gap = report_gap(card, cpu)
+        bad = [p for p, v in numbers(card) if not math.isfinite(v)]
+        if bad or gap > 1e-4:
+            raise AssertionError(f"(k3) {name}: not finite {bad}; card vs cpu {gap!r}")
+        out[name] = {"card_vs_cpu": gap}
+        say(f"[5/6] (k3) {name}: card == cpu within {gap!r} (atol 1e-4; booleans, "
+            f"counts and keys equal); {json.dumps(card)}")
+        if name == "counterfactual" and not card["condition_sensitivity"] > 0:
+            raise AssertionError("(k3) counterfactual: the condition moves nothing")
+    out["seconds"]["k3"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    acc = quiet(accuracy_suite.main, ["--dataset", str(tmp / "shock")] + [
+        a for name in K0_RUNS for a in (f"--{name}-run", str(tmp / f"tool_{name}"))])
+    out["seconds"]["k4"] = time.perf_counter() - t0
+    bad = [p for p, v in numbers(acc) if not math.isfinite(v)]
+    sections = ("regression", "seq_modeling", "dyn_modeling", "conditional")
+    if bad or not all(s in acc for s in sections):
+        raise AssertionError(f"(k4) accuracy_suite: not finite {bad}, sections {sorted(acc)}")
+    say(f"[5/6] (k4) accuracy_suite on the shock corpus ({acc['n_train']} train, "
+        f"{acc['n_test']} test sequences) in {out['seconds']['k4']:.2f} s: {json.dumps(acc)}")
+    return out
+
+
+def tools_path(kernels, card, tmp):
+    """(k), part 1, in (f)'s temporary directory after (g): (k0) the runs
+    the tools evaluate, trained on the card; then (k1)-(k4), which must
+    launch no kernel of the port."""
+    t0 = time.perf_counter()
+    out = {"train": train_tool_runs(kernels, tmp)}
+    reset_counters(kernels)
+    out.update(tool_reports(tmp))
+    tools_launches = read_counters(kernels)
+    if any(tools_launches.values()):
+        raise AssertionError(f"(k1)-(k4): kernel launches {tools_launches}, expected none")
+    out["launches"] = out["train"]["launches"]
+    out["seconds"]["total"] = time.perf_counter() - t0
+    say(f"[5/6] (k) part 1 on {card} took {out['seconds']['total']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in out['seconds'].items() if k != 'total')}); "
+        f"launches: training {out['launches']}, the tools {tools_launches}")
+    return out
+
+
+def rerender_path(tmp):
+    """(k5): ``rerender_dataset`` on the first object's sequences of (j2)'s
+    dump at exp_1's sensor geometry (the tool's defaults), batch 128, suffix
+    ``-re``; every frame's mean |re-rendered - dumped tactile| must stay
+    below 6 counts (``tests/test_tools.py::TestRerenderDataset``)."""
+    import cv2
+
+    from mmdyn_tpu_torch.tools import rerender_dataset
+
+    first = sorted((tmp / "gen" / "dataset").glob("*/*"))[0]
+    (tmp / "rerender").mkdir()
+    (tmp / "rerender" / "dataset").symlink_to(first, target_is_directory=True)
+    report = quiet(rerender_dataset.main, ["--dataset", str(tmp / "rerender"), "--batch",
+                                           "128", "--suffix=-re"])
+    diffs = []
+    for depth in sorted(first.glob("**/depth_*.png")):
+        ours = cv2.imread(str(depth.with_name(depth.name.replace("depth_", "tactile-re_"))))
+        dumped = cv2.imread(str(depth.with_name(depth.name.replace("depth_", "tactile_"))))
+        diffs.append(float(np.abs(ours.astype(int) - dumped.astype(int)).mean()))
+    if len(diffs) != report["frames"] or not diffs or max(diffs) >= 6.0:
+        raise AssertionError(f"(k5) rerender_dataset: {report}, {len(diffs)} frames, "
+                             f"largest mean diff {max(diffs, default=None)}")
+    say(f"[5/6] (k5) rerender_dataset of {first.relative_to(tmp / 'gen')}: {report['frames']} "
+        f"frames at 640 x 480 in {report['seconds']} s ({report['frames_per_sec']} frames/s): "
+        f"PNG reads {report['host_read_s']} s, render {report['render_s']} s (device), "
+        f"download and PNG writes {report['write_s']} s; mean |re-rendered - dumped| per "
+        f"frame {np.mean(diffs):.3f} on average, {max(diffs):.3f} at most (bound 6)")
+    return {"report": report, "mean_diff": float(np.mean(diffs)), "max_diff": max(diffs)}
+
+
+def bullet_diff_runs(tmp):
+    """(k6): ``bullet_diff`` of demo --device-physics against itself (same
+    engine, same seed) must report ok with zero position and image diffs;
+    ``--skip-run`` on a winebottle and a bowl demo dump with tight
+    tolerances must exit 1 and name failures (the JAX test's argv)."""
+    from mmdyn_tpu_torch.cli import demo
+    from mmdyn_tpu_torch.tools import bullet_diff
+
+    def run(argv):
+        """(report, exit code): the report is the last line the tool prints."""
+        buf, code = io.StringIO(), 0
+        with contextlib.redirect_stdout(buf):
+            try:
+                bullet_diff.main(argv)
+            except SystemExit as e:
+                code = e.code
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), code
+
+    t0 = time.perf_counter()
+    same, code = run(["--script", "demo", "--engines", "analytic,analytic", "--seed", "3",
+                      "--extra=--device-physics", "--workdir", str(tmp / "bd_same")])
+    same_s = time.perf_counter() - t0
+    seq = same["sequences"][0]
+    if code != 0 or not same["ok"] or seq["pos_l2_max"] != 0.0 or \
+            seq["visual_mad_max"] != 0.0 or seq["tactile_mad_max"] != 0.0:
+        raise AssertionError(f"(k6) bullet_diff same seed: exit {code}, {same}")
+    common = ["--headless", "--engine", "analytic", "--n_timesteps", "60", "--interval",
+              "20", "--seed", "3"]
+    for obj, name in (("winebottle", "a"), ("bowl", "b")):
+        quiet(demo.main, common + ["--object", obj, "--logdir", str(tmp / "bd_skip" / name)])
+    skip, code = run(["--skip-run", "--engines", "a,b", "--workdir", str(tmp / "bd_skip"),
+                      "--tol-pos-final", "1e-6", "--tol-img-mad", "1e-6"])
+    if code != 1 or skip["ok"] or not skip["failures"]:
+        raise AssertionError(f"(k6) bullet_diff --skip-run: exit {code}, {skip}")
+    say(f"[5/6] (k6) bullet_diff demo --device-physics, same engine and seed: ok, "
+        f"{seq['frames']} frames, position and image diffs 0 ({same_s:.2f} s for both runs "
+        f"and the diff); --skip-run winebottle vs bowl: exit 1, failures {skip['failures']}")
+    return {"same_seed_frames": seq["frames"], "same_s": same_s,
+            "divergence_failures": len(skip["failures"])}
+
+
+def tools_dump_path(kernels, card, tmp):
+    """(k), part 2, in (j)'s temporary directory after (j): (k5) and (k6),
+    which must launch no kernel of the port."""
+    t0 = time.perf_counter()
+    reset_counters(kernels)
+    out = {"rerender": rerender_path(tmp), "bullet_diff": bullet_diff_runs(tmp)}
+    out["launches"] = read_counters(kernels)
+    if any(out["launches"].values()):
+        raise AssertionError(f"(k5)-(k6): kernel launches {out['launches']}, expected none")
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[5/6] (k) part 2 on {card} took {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result",
@@ -1836,10 +2125,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_path(kernels, card, paths["seq_modeling"]["frames_per_s"], Path(tmp))
         serve = serve_path(kernels, card, Path(tmp))
+        tools = tools_path(kernels, card, Path(tmp))
         corpus = corpus_path(kernels, card, Path(tmp))
     datagen = datagen_path(kernels, card)
     with tempfile.TemporaryDirectory() as tmp:
         simcli = simcli_path(kernels, card, datagen.pop("_chunk"), Path(tmp))
+        tools["dumps"] = tools_dump_path(kernels, card, Path(tmp))
 
     for e in entries:
         # the bf16 kernel's main path is (d), the others' (a)
@@ -1851,12 +2142,14 @@ def main():
         e["launches_by_path"]["corpus"] = corpus["launches"][e["name"]]
         e["launches_by_path"]["datagen"] = datagen["launches"][e["name"]]
         e["launches_by_path"]["simcli"] = simcli["launches"][e["name"]]
+        e["launches_by_path"]["tools"] = (tools["launches"][e["name"]]
+                                          + tools["dumps"]["launches"][e["name"]])
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
     say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (
         "step_ms", "frames_per_s", "peak_gib", "busy_share", "conv_share") if k in p}
         for name, p in paths.items()}, "cli": cli, "serve": serve, "corpus": corpus,
-        "datagen": datagen, "simcli": simcli}))
+        "datagen": datagen, "simcli": simcli, "tools": tools}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

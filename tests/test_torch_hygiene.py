@@ -1,6 +1,6 @@
 """The port stands alone: ``mmdyn_tpu_torch``, ``chip_smoke.py`` and the
-kernel bench ``tools/bce_bf16_bench.py`` import neither JAX nor the JAX
-package."""
+kernel bench ``tools/bce_bf16_bench.py`` import neither JAX, nor the JAX
+package, nor the repository's ``tools`` package (the JAX package's tools)."""
 
 import re
 import subprocess
@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(mmdyn_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu", "tools"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -35,7 +35,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert n_modules >= 20, out.stdout
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b)"
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|tools)\b"
                         r"|\bmmdyn_tpu\.", re.MULTILINE)
 
 
@@ -50,13 +50,13 @@ def test_no_source_names_jax_or_the_jax_package():
 
 _CLI_HELP = """
 import runpy, sys
-sys.argv = ["mmdyn_tpu_torch.cli.{cli}", "--help"]
+sys.argv = ["mmdyn_tpu_torch.{module}", "--help"]
 try:
-    runpy.run_module("mmdyn_tpu_torch.cli.{cli}", run_name="__main__")
+    runpy.run_module("mmdyn_tpu_torch.{module}", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu", "tools"))
 print("LOADED", bad)
 assert not bad, bad
 """
@@ -70,11 +70,21 @@ assert not bad, bad
     ("exp_1_flat_plane", ("--device-physics", "--device-render", "--workers")),
     ("exp_2_inclined_plane", ("--device-physics", "--device-render", "--slope")),
     ("exp_3_force_pert", ("--device-physics", "--device-render", "--snapshot_from")),
+    ("tools.rollout_eval", ("--frames", "--max-steps")),
+    ("tools.counterfactual", ("--sweep", "--calibrate")),
+    ("tools.accuracy_suite", ("--cond-run", "--no-crop")),
+    ("tools.bench_infer", ("--batch-sizes", "--rollout")),
+    ("tools.bench_http", ("--wait-ms", "--calibrate-frames")),
+    ("tools.rerender_dataset", ("--suffix", "--thickness")),
+    ("tools.bullet_diff", ("--engines", "--skip-run")),
 ])
 def test_cli_help_loads_no_jax(cli, flags):
-    """``python -m mmdyn_tpu_torch.cli.<cli> --help`` in a fresh interpreter
-    prints the CLI's flags and loads neither JAX nor the JAX package."""
-    out = subprocess.run([sys.executable, "-c", _CLI_HELP.format(cli=cli)], cwd=REPO,
+    """``python -m mmdyn_tpu_torch.cli.<cli> --help`` (and
+    ``mmdyn_tpu_torch.tools.<tool>``) in a fresh interpreter prints the
+    entry point's flags and loads neither JAX, nor the JAX package, nor the
+    JAX package's ``tools``."""
+    module = cli if cli.startswith("tools.") else f"cli.{cli}"
+    out = subprocess.run([sys.executable, "-c", _CLI_HELP.format(module=module)], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert all(f in out.stdout for f in flags + ("--platform",)), out.stdout
