@@ -163,6 +163,29 @@ Phases, any failure raises and exits non-zero:
        itself (ok, position and image diffs 0), then ``--skip-run`` on a
        winebottle and a bowl demo dump with tight tolerances (exit 1,
        failures named). (k1)-(k6) launch no kernel of the port.
+   (l) data parallelism (``mmdyn_tpu_torch/parallel``), after (k) part 1 in
+       (f)'s temporary directory: (l1) ``cli.main --num-devices 1`` (a
+       one-rank NCCL group) on (f)'s corpus and flags with cuDNN's
+       deterministic algorithms, its parameters equal to (f)'s
+       deterministic run's bit for bit, 1 PoE and 2 BCE launches per
+       forward; then the seq flagship's bare step at batch 512 in a one-rank
+       NCCL group with the default algorithms: ms/step against (a)'s, the
+       collectives per step, and the NCCL kernels' device time from a
+       profile. (l2) two ranks spawned on ``cuda:0``, joined by gloo (NCCL
+       refuses two ranks on one card): the seq flagship at full width
+       (latent 256, float32), 256 of the global 512 rows each, 4 steps from
+       one state against one process on the global batch (every step's
+       loss within rel 1e-4, the first step's gradients within 1e-4 and the
+       parameters within 1e-3 in relative L2 norm, their largest single gap
+       printed beside the one process's own gaps under cuDNN's default
+       algorithms), the counters in each rank read 1 PoE and 2 BCE
+       launches per step, ms/step, peak GiB and the collectives per step of
+       each rank, and one more step with every all-reduce timed between
+       synchronisations (gloo's share of the step). (l3) in the same two
+       ranks, ``InferenceSession(mesh=)`` predicts the 64-row serving batch
+       within atol 1e-5 of one process. (l4) ``cli.main --num-devices``
+       one more than the visible cards exits non-zero, naming both counts.
+       Two ranks on one card are no evidence of scaling.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -806,6 +829,14 @@ def check_restore(problem):
     return len(want)
 
 
+def cli_argv(tmp):
+    """(f)'s flags: the seq flagship on (f)'s corpus, batch 512."""
+    return ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
+            "--input-type", "visuotactile", "--use-pose", "--dataset-path",
+            str(tmp / "ds"), "--batchsize", "512", "--dtype", "auto",
+            "--no-tensorboard", "--logs-root", str(tmp / "logs")]
+
+
 def cli_path(kernels, card, bare_frames_per_s, tmp):
     """(f): the training CLI in process on a corpus written for it under
     ``tmp``, then the determinism probe and a second uninterrupted run with
@@ -824,10 +855,7 @@ def cli_path(kernels, card, bare_frames_per_s, tmp):
     make_compiled_arrays(tmp / "ds" / COMPILED_NAME, n_sequences=2600, seq_length=2,
                          seed=0, packed_dir=True)
     corpus_s = time.perf_counter() - t0
-    argv = ["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
-            "--input-type", "visuotactile", "--use-pose", "--dataset-path",
-            str(tmp / "ds"), "--batchsize", "512", "--dtype", "auto",
-            "--no-tensorboard", "--logs-root", str(tmp / "logs")]
+    argv = cli_argv(tmp)
     reset_counters(kernels)
     t0 = time.perf_counter()
     run = cli_main.main(argv + ["--num-epochs", "2", "--log-dir", str(tmp / "run")])
@@ -900,12 +928,13 @@ def cli_path(kernels, card, bare_frames_per_s, tmp):
             raise AssertionError(f"(f) evaluate: {metrics}, {plots}")
         say(f"[5/6] (f) cli.evaluate: test loss {metrics['test_loss_total']!r}; "
             f"wrote {plots}")
+    det_params = {k: v.detach().cpu().clone() for k, v in det_final.state_dict().items()}
     del run, again, full, first, resumed, final, det_final
     torch.cuda.empty_cache()
     return {"frames_per_s": fps, "launches": launches, "step_rerun_diff": step_diff,
             "rerun_diff": rerun_diff, "deterministic": deterministic,
             "det_step_rerun_diff": det_step_diff, "det_resume_diff": resume_diff,
-            "det_frames_per_s": det_fps}
+            "det_frames_per_s": det_fps, "_det_params": det_params}
 
 
 def serving_inputs(b, seed=5):
@@ -2051,6 +2080,346 @@ def tools_dump_path(kernels, card, tmp):
     return out
 
 
+# (l): data parallelism (mmdyn_tpu_torch/parallel) on the one card
+DDP_STEPS = 4
+DDP_TIMEOUT = 300
+DDP_LAUNCHES = {"poe_reparam": DDP_STEPS, "bce_sum": 2 * DDP_STEPS, "bce_sum_bf16": 0}
+
+
+def ddp_cli_one_rank(kernels, card, tmp, det_params):
+    """(l1), part 1: ``cli.main --num-devices 1`` (a one-rank NCCL group) on
+    (f)'s corpus and flags, with cuDNN's deterministic algorithms: its
+    parameters must equal those of (f)'s plain run under the same
+    algorithms bit for bit (an all-reduce over one rank and a division by 1
+    are exact)."""
+    from mmdyn_tpu_torch.cli import main as cli_main
+
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        run = cli_main.main(cli_argv(tmp) + ["--num-epochs", "2", "--log-dir",
+                                             str(tmp / "dp1"), "--num-devices", "1"])
+    wall_s = time.perf_counter() - t0
+    launches = read_counters(kernels)
+    got = run.state.model.state_dict()
+    differ = sorted(k for k, v in det_params.items() if not torch.equal(got[k].cpu(), v))
+    if (run.mesh is None or run.mesh.size != 1 or run.device.type != "cuda" or differ
+            or launches != {"poe_reparam": 10, "bce_sum": 20, "bce_sum_bf16": 0}):
+        raise AssertionError(f"(l1) cli.main --num-devices 1: {len(differ)} tensors differ "
+                             f"from the plain run ({differ[:5]}), launches {launches}")
+    fps = run._logger_dict["Perf/frames_per_sec"]
+    say(f"[5/6] (l1) cli.main --num-devices 1 (one-rank NCCL group, cuDNN deterministic) "
+        f"on {card}: {wall_s:.2f} s, loop frames/s by epoch {fps}; all {len(det_params)} "
+        f"parameter tensors equal (f)'s plain run's bit for bit; launches {launches}")
+    del run
+    torch.cuda.empty_cache()
+    return {"frames_per_s": fps, "tensors_equal": len(det_params), "launches": launches}
+
+
+def ddp_bare_step(kernels, card, flag, bare_step_ms):
+    """(l1), part 2: the flagship's bare step at batch 512 in a one-rank
+    NCCL group against the same step without a group, in turns on one
+    state, with torch's default cuDNN algorithms as in (a) (a session of (g)
+    selected the deterministic ones for the process): ms/step of each and
+    (a)'s, the collectives per step and their bytes, the NCCL kernels'
+    device time and the device time the group adds, from profiles of 3
+    steps of each. NCCL runs no kernel for an all-reduce in place over one
+    rank, so what the group adds is the flat gradient buffer's copies."""
+    from mmdyn_tpu_torch.parallel import make_mesh
+    from mmdyn_tpu_torch.train import make_train_step
+
+    mesh = make_mesh(1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False       # (a)'s algorithms, not (g)'s
+    try:
+        state, plain = train_state(flag, mesh.device)
+        steps = {"group": make_train_step(flag, mesh=mesh), "plain": plain}
+        batch = {k: torch.as_tensor(v, device=mesh.device)
+                 for k, v in synthetic_batch(flag.batchsize).items()}
+        gen = torch.Generator(device=mesh.device).manual_seed(0)
+
+        def run(name, n):
+            for _ in range(n):
+                steps[name](state, batch, gen, 1.0)
+
+        run("group", 1)                                   # warm-up
+        torch.cuda.synchronize()
+        step_ms, launches = {}, {}
+        for name in ("group", "plain", "plain", "group"):
+            before = mesh.collectives
+            reset_counters(kernels)
+            t0 = time.perf_counter()
+            run(name, DDP_STEPS)
+            torch.cuda.synchronize()
+            step_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / DDP_STEPS)
+            launches[name] = read_counters(kernels)
+            if name == "group":
+                per_step = (mesh.collectives - before) / DDP_STEPS
+        if any(v != DDP_LAUNCHES for v in launches.values()):
+            raise AssertionError(f"(l1) bare step: launches {launches} over {DDP_STEPS} steps")
+        grad_bytes = 4 * sum(p.numel() for p in state.model.parameters())
+        prof, events = device_profile(lambda: run("group", 3), "(l1) 3 one-rank NCCL steps",
+                                      calls=3, top=6)
+        plain_prof, _ = device_profile(lambda: run("plain", 3), "(l1) the same 3 steps "
+                                       "without a group", calls=3, top=0)
+        nccl = [e for e in events if "nccl" in e.key.lower()]
+        nccl_ms = sum(dev_us(e) for e in nccl) / 1e3 / 3
+        added_ms = (prof["busy_ms"] - plain_prof["busy_ms"]) / 3
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        mesh.close()
+    say(f"[5/6] (l1) the seq flagship's bare step at batch 512 on {card}: in a one-rank "
+        f"NCCL group {[round(t, 3) for t in step_ms['group']]} ms/step, without a group "
+        f"{[round(t, 3) for t in step_ms['plain']]} (in turns on one state), (a) "
+        f"{bare_step_ms:.3f}; {per_step:g} collectives per step (the gradients' "
+        f"{grad_bytes / 2**20:.1f} MiB all-reduce and the metrics'); NCCL kernels "
+        f"{nccl_ms:.4f} ms of device time per step ({len(nccl)} kinds"
+        + "".join(f"; {e.key[:50]} {dev_us(e) / e.count:.1f} us x{e.count // 3}"
+                  for e in nccl)
+        + f"); device busy per step {prof['busy_ms'] / 3:.3f} ms in the group, "
+        f"{plain_prof['busy_ms'] / 3:.3f} without: the group adds {added_ms:.4f} ms")
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "bare_step_ms": bare_step_ms, "collectives_per_step": per_step,
+            "grad_bytes": grad_bytes, "nccl_ms_per_step": nccl_ms,
+            "added_device_ms_per_step": added_ms, "busy_share": prof["busy_share"]}
+
+
+def _collective_ms(step, state, batch, gen, device):
+    """One more step with every all-reduce timed on the host between two
+    synchronisations of the card: (step ms, ms inside the all-reduces). The
+    time inside holds gloo's copies through the host, its exchange with the
+    other rank, and the wait for that rank to arrive."""
+    import torch.distributed as dist
+
+    real, spent = dist.all_reduce, [0.0]
+
+    def timed(t, *args, **kwargs):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = real(t, *args, **kwargs)
+        torch.cuda.synchronize(device)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    dist.all_reduce = timed
+    try:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        step(state, batch, gen, 1.0)
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) * 1e3, spent[0] * 1e3
+    finally:
+        dist.all_reduce = real
+
+
+def ddp_gaps(losses, grads, params, ref):
+    """A run's gaps to the reference run ``ref`` (same state, batch and
+    steps): every step's loss (max relative), the first step's gradients
+    (max gap over the tensor's max |g|, worst tensor; and relative L2 over
+    all), the parameters after the steps (largest gap over the largest
+    |param|; relative L2)."""
+    def l2(a, b):
+        return math.sqrt(sum(float(((a[n] - v).double() ** 2).sum()) for n, v in b.items())
+                         / sum(float((v.double() ** 2).sum()) for v in b.values()))
+
+    worst = max((float((grads[n] - g).abs().max() / g.abs().max()), n)
+                for n, g in ref["grads"].items())
+    want = ref["params"]
+    return {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])),
+            "grad_rel": worst[0], "grad_worst": worst[1],
+            "grad_l2_rel": l2(grads, ref["grads"]),
+            "param_gap_over_max": (max(float((params[n] - v).abs().max())
+                                       for n, v in want.items())
+                                   / max(float(v.abs().max()) for v in want.values())),
+            "param_l2_rel": l2(params, want)}
+
+
+def _ddp_rank(path):
+    """One of (l2)'s two ranks, both on ``cuda:0``, joined by gloo: the seq
+    flagship's 4 steps on this rank's 256 rows of the reference's global
+    batch from the reference's state, held against the one-process run;
+    then (l3), predict of the whole serving batch."""
+    from mmdyn_tpu_torch.models import model_kwargs, setup_model
+    from mmdyn_tpu_torch.ops import kernels
+    from mmdyn_tpu_torch.parallel import make_mesh, shard_batch
+    from mmdyn_tpu_torch.problems import make_optimizer
+    from mmdyn_tpu_torch.serve import InferenceSession
+    from mmdyn_tpu_torch.train import create_train_state, make_train_step
+    from mmdyn_tpu_torch.utils.device import set_reference_precision
+
+    set_reference_precision()
+    torch.backends.cudnn.deterministic = True     # as in the reference's process
+    ref = torch.load(path, weights_only=False)
+    cfg = ref["cfg"]
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:0"], backend="gloo", timeout=DDP_TIMEOUT)
+    dev = mesh.device
+    model = setup_model(cfg.model_name, cross_modal=cfg.cross_modal, device=dev,
+                        **model_kwargs(cfg))
+    model.load_state_dict(ref["init"])
+    state = create_train_state(model, make_optimizer(cfg, model.parameters()))
+    step = make_train_step(cfg, mesh=mesh)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in shard_batch(mesh, ref["batch"]).items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters(kernels)
+    before = mesh.collectives
+    losses, step_s, grads = [], [], None
+    for _ in range(DDP_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen, 1.0)
+        losses.append(float(metrics["loss"]))       # the read syncs
+        step_s.append(time.perf_counter() - t0)
+        if grads is None:
+            grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    launches = read_counters(kernels)
+    per_step = (mesh.collectives - before) / DDP_STEPS
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    out = {
+        "rank": mesh.rank, "launches": launches, "collectives_per_step": per_step,
+        "losses": losses, **ddp_gaps(losses, grads, params, ref),
+        "params_sum": float(sum(p.double().sum() for p in params.values())),
+        "step_ms": [t * 1e3 for t in step_s],
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+    }
+    out["instrumented_step_ms"], out["allreduce_ms"] = _collective_ms(step, state, batch,
+                                                                      gen, dev)
+    session = InferenceSession(cfg, ref["init"], device=dev, mesh=mesh)
+    pred = session.predict(**ref["serve_x"])
+    out["serve_gap"] = max(float((pred[k].cpu() - v).abs().max())
+                           for k, v in ref["serve"].items())
+    out["serve_rows"] = int(pred["visual"].shape[0])
+    return out
+
+
+def ddp_two_ranks(card, flag, tmp):
+    """(l2) and (l3): the one-process reference on the card (the seq flagship
+    at full width, batch 512, 4 steps from one state, cuDNN's deterministic
+    algorithms; predict at batch 64), then two gloo ranks sharing ``cuda:0``
+    (``_ddp_rank``) held against it: every step's loss within rel 1e-4, the
+    first step's gradients within 1e-4 in relative L2 norm (a gradient
+    summed wrong, which Adam's scale-free update would hide, shows here),
+    the parameters after the 4 steps within 1e-3 in relative L2 norm,
+    predict within atol 1e-5, and 1 PoE and 2 BCE launches per step on each
+    rank. The parameters' largest single gap is printed, beside the same
+    readings of the reference rerun with cuDNN's default algorithms (the
+    floor): Adam divides each gradient element by its own magnitude plus
+    1e-8, so an element whose gradient sits at float32's rounding floor
+    moves by up to the learning rate whatever its sign, in any two runs
+    that sum in different orders."""
+    from mmdyn_tpu_torch.parallel import spawn
+    from mmdyn_tpu_torch.serve import InferenceSession
+
+    batch_np = synthetic_batch(flag.batchsize)
+
+    def one_process(init=None):
+        """4 steps of one process on the global batch: (the first state's
+        weights, losses, first-step gradients, parameters)."""
+        state, step = train_state(flag, None)
+        if init is not None:
+            state.model.load_state_dict(init)
+        dev = next(state.model.parameters()).device
+        first = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        losses, grads = [], None
+        for _ in range(DDP_STEPS):
+            state, metrics = step(state, batch, gen, 1.0)
+            losses.append(float(metrics["loss"]))
+            if grads is None:
+                grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+        params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+        return first, losses, grads, params
+
+    init, losses, grads, params = one_process()
+    ref = {"losses": losses, "grads": grads, "params": params}
+    # the floor: the same run with cuDNN's default algorithms, which sum in
+    # other orders (as (f)'s rerun shows, they also differ run to run)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        control = ddp_gaps(*one_process(init)[1:], ref)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    x = serving_inputs(64)
+    serve = {k: v.cpu() for k, v in InferenceSession(flag, init).predict(**x).items()}
+    torch.cuda.empty_cache()
+    path = tmp / "ddp_reference.pt"
+    torch.save({"cfg": flag, "init": init, "batch": batch_np, **ref, "serve_x": x,
+                "serve": serve}, path)
+    t0 = time.perf_counter()
+    ranks = spawn(_ddp_rank, 2, (str(path),), backend="gloo", timeout=DDP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    say(f"[5/6] (l2) the floor: one process with cuDNN's default algorithms against the "
+        f"reference (deterministic ones): {json.dumps(control)}")
+    for r in ranks:
+        share = r["allreduce_ms"] / r["instrumented_step_ms"]
+        say(f"[5/6] (l2) rank {r['rank']} of 2 (gloo, both on cuda:0) on {card}: seq "
+            f"flagship latent {flag.latent_size} {flag.compute_dtype}, "
+            f"{flag.batchsize // 2} of {flag.batchsize} rows, {DDP_STEPS} steps "
+            f"{[round(t, 3) for t in r['step_ms']]} ms (the first warms up); losses "
+            f"{r['losses']}, max rel gap to one process {r['loss_rel']:.3e}; first-step "
+            f"gradients {r['grad_rel']:.3e} (max gap over max |g|, {r['grad_worst']}), "
+            f"{r['grad_l2_rel']:.3e} in L2; parameters L2 {r['param_l2_rel']:.3e}, largest "
+            f"gap over max |param| {r['param_gap_over_max']:.3e}; "
+            f"{r['collectives_per_step']:g} collectives per "
+            f"step; launches {r['launches']}; peak {r['peak_gib']:.2f} GiB; one "
+            f"instrumented step {r['instrumented_step_ms']:.1f} ms, {r['allreduce_ms']:.1f} "
+            f"ms ({share:.1%}) inside gloo's all-reduces (copies through the host, the "
+            f"exchange, the wait for the other rank)")
+        say(f"[5/6] (l3) rank {r['rank']}: predict of the 64-row batch, 32 rows each, "
+            f"BatchNorm over both: max gap to one process {r['serve_gap']!r} (atol 1e-5)")
+    say(f"[5/6] (l2)+(l3): two spawned ranks took {wall_s:.1f} s, start-up included; two "
+        f"ranks on one card share its SMs and memory: no evidence of scaling")
+    for r in ranks:
+        if (r["launches"] != DDP_LAUNCHES or r["loss_rel"] > 1e-4 or r["grad_l2_rel"] > 1e-4
+                or r["param_l2_rel"] > 1e-3 or r["serve_gap"] > 1e-5
+                or r["serve_rows"] != 64):
+            raise AssertionError(f"(l2)/(l3) rank {r['rank']}: "
+                                 f"{ {k: v for k, v in r.items() if k != 'losses'} }")
+    if ranks[0]["params_sum"] != ranks[1]["params_sum"]:
+        raise AssertionError("(l2): the two ranks hold different parameters")
+    for r in ranks:
+        r["gloo_share"] = r["allreduce_ms"] / r["instrumented_step_ms"]
+    return {"ranks": ranks, "floor": control, "wall_s": wall_s,
+            "launches": ranks[0]["launches"]}
+
+
+def ddp_refusal(card):
+    """(l4): ``cli.main --num-devices N`` for one card more than the machine
+    has exits non-zero with an error naming both counts, before any rank or
+    run directory exists."""
+    count = torch.cuda.device_count()
+    n = count + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([sys.executable, "-m", "mmdyn_tpu_torch.cli.main",
+                              "--num-devices", str(n), "--logs-root", tmp],
+                             cwd=REPO, capture_output=True, text=True, timeout=300)
+        left = list(Path(tmp).iterdir())
+    want = (f"--num-devices {n} asks for {n} CUDA devices, but {count} "
+            f"{'is' if count == 1 else 'are'} visible")
+    if out.returncode == 0 or want not in out.stderr or left:
+        raise AssertionError(f"(l4): exit {out.returncode}, {out.stderr[-500:]}, left {left}")
+    say(f"[5/6] (l4) cli.main --num-devices {n} on {card}: exit {out.returncode}, "
+        f"'{want}'")
+    return {"exit": out.returncode, "message": want}
+
+
+def ddp_path(kernels, card, flag, bare_step_ms, det_params, tmp):
+    """(l), in (f)'s temporary directory: (l1) one rank bit for bit and its
+    bare step, (l2) and (l3) two gloo ranks on one card, (l4) the refusal."""
+    t0 = time.perf_counter()
+    out = {"cli_one_rank": ddp_cli_one_rank(kernels, card, tmp, det_params),
+           "bare_one_rank": ddp_bare_step(kernels, card, flag, bare_step_ms)}
+    out.update(ddp_two_ranks(card, flag, tmp))
+    out["refusal"] = ddp_refusal(card)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[5/6] (l) took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result",
@@ -2127,6 +2496,8 @@ def main():
         serve = serve_path(kernels, card, Path(tmp))
         tools = tools_path(kernels, card, Path(tmp))
         corpus = corpus_path(kernels, card, Path(tmp))
+        ddp = ddp_path(kernels, card, flag, paths["seq_modeling"]["step_ms"],
+                       cli.pop("_det_params"), Path(tmp))
     datagen = datagen_path(kernels, card)
     with tempfile.TemporaryDirectory() as tmp:
         simcli = simcli_path(kernels, card, datagen.pop("_chunk"), Path(tmp))
@@ -2144,12 +2515,13 @@ def main():
         e["launches_by_path"]["simcli"] = simcli["launches"][e["name"]]
         e["launches_by_path"]["tools"] = (tools["launches"][e["name"]]
                                           + tools["dumps"]["launches"][e["name"]])
+        e["launches_by_path"]["ddp"] = ddp["launches"][e["name"]]
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
     say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (
         "step_ms", "frames_per_s", "peak_gib", "busy_share", "conv_share") if k in p}
         for name, p in paths.items()}, "cli": cli, "serve": serve, "corpus": corpus,
-        "datagen": datagen, "simcli": simcli, "tools": tools}))
+        "datagen": datagen, "simcli": simcli, "tools": tools, "ddp": ddp}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

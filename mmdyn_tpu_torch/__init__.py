@@ -13,6 +13,8 @@ same path:
 * ``mmdyn_tpu_torch.data``     — compiling simulator dumps into a corpus, the
   corpus reader, the splits and the loader.
 * ``mmdyn_tpu_torch.serve``    — the inference session, export, the HTTP server.
+* ``mmdyn_tpu_torch.parallel`` — data parallelism over processes, one per
+  device (``torch.distributed``).
 * ``mmdyn_tpu_torch.sim``      — the simulator's host scene code and its batched
   device half (rollouts, raycast and tactile frames).
 * ``mmdyn_tpu_torch.utils``    — device resolution, weights carried over from

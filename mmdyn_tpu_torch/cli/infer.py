@@ -15,11 +15,20 @@ the CPU.
 Frames are prepared exactly as the training compile does (seg-bbox square
 crop -> 256 -> 64, datasets.py:159-345) so serving inputs match the training
 distribution. Reading PNGs needs Pillow.
+
+``--num-devices N`` > 1 spawns N ranks, one per card (or CPU processes with
+``--platform cpu``), as ``cli/main.py`` does: every rank reads the frames
+and predicts each batch, computing its row block with BatchNorm statistics
+over the whole batch (``InferenceSession``'s ``mesh``); the batch is
+rounded up to a multiple of N (the tail padded as before), a rollout
+starts from its frame once per rank; rank 0 writes the outputs.
+``--export`` needs one rank.
 """
 
 import argparse
 import glob
 import json
+import sys
 import time
 from pathlib import Path
 
@@ -60,8 +69,8 @@ def build_parser():
                    help="sequence dump dir; freeze BatchNorm statistics on "
                         "these frames before predicting")
     p.add_argument("--num-devices", default=0, type=int,
-                   help="serve on this many cards (0 or 1 = one card; more is "
-                        "not ported yet)")
+                   help="data-parallel over this many devices, one process each "
+                        "(0 = one device, no process group)")
     p.add_argument("--platform", default=None, type=str,
                    help="'cpu' serves on the CPU; otherwise the CUDA card")
     return p
@@ -141,34 +150,55 @@ def _save_images(out_dir, name, arr):
         Image.fromarray(img).save(Path(out_dir) / f"{name}_{i:04d}.png")
 
 
-def load_session(args):
-    """The session of the CLIs' shared flags (``cli/serve.py`` too): exactly
-    one of --run / --torch-ckpt, on the device --platform selects."""
+def check_source(args):
+    """Exactly one of --run / --torch-ckpt (``cli/serve.py`` too)."""
     if bool(args.run) == bool(args.torch_ckpt):
         raise SystemExit("exactly one of --run / --torch-ckpt is required")
-    if args.num_devices > 1:
-        raise NotImplementedError("serving on several cards is not ported yet")
+
+
+def load_session(args, mesh=None):
+    """The session of the CLIs' shared flags (``cli/serve.py`` too), on the
+    device --platform selects, or one rank of ``mesh``."""
+    check_source(args)
     from mmdyn_tpu_torch.serve import InferenceSession
     from mmdyn_tpu_torch.utils.device import device_for_platform, set_reference_precision
 
-    device = device_for_platform(args.platform)
+    device = mesh.device if mesh is not None else device_for_platform(args.platform)
     set_reference_precision()
     if args.torch_ckpt:
         return InferenceSession.from_torch_ckpt(
             args.torch_ckpt, problem_type=args.problem_type,
             model_name=args.model_name, input_type=args.input_type,
-            conditional=args.conditional, parity=args.parity, device=device)
+            conditional=args.conditional, parity=args.parity, device=device, mesh=mesh)
     return InferenceSession.from_run(args.run, parity=args.parity,
-                                     checkpoint=args.checkpoint, device=device)
+                                     checkpoint=args.checkpoint, device=device, mesh=mesh)
 
 
 def main(argv=None):
+    """Predicts (or exports); returns the report (or the manifest). With
+    ``--num-devices`` > 1, rank 0's report."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    check_source(args)
+    from mmdyn_tpu_torch.parallel import cli_mesh, launched, spawn_cli
+
+    if args.num_devices > 1 and not launched():
+        return spawn_cli(main, argv, args.num_devices, args.platform)
+    mesh = cli_mesh(args.num_devices, args.platform)
+    try:
+        return _infer(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _infer(args, mesh):
     import numpy as np
 
     from mmdyn_tpu_torch.serve import export_session
 
-    session = load_session(args)
+    chief = mesh is None or mesh.is_chief
+    session = load_session(args, mesh)
     cfg = session.cfg
     modalities = (("visual", "tactile") if cfg.cross_modal
                   else (cfg.input_type,))
@@ -193,7 +223,8 @@ def main(argv=None):
     if args.out is None and args.run is None:
         raise SystemExit("--out is required with --torch-ckpt")
     out_dir = Path(args.out or Path(args.run) / "plot" / "infer")
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if chief:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     input_mods = (tuple(modalities) + ("pose",)
                   if cfg.use_pose and not args.no_pose else tuple(modalities))
@@ -204,17 +235,22 @@ def main(argv=None):
               "modalities": list(modalities), "batchsize": args.batchsize}
 
     if args.rollout:
-        init = {m: v[:1] for m, v in frames.items()}
+        # the first frame, once per rank: identical rows leave batch
+        # statistics as one row's; row 0's trajectory is kept
+        rows = 1 if mesh is None else mesh.size
+        init = {m: np.repeat(v[:1], rows, 0) for m, v in frames.items()}
         t0 = time.perf_counter()
         traj = session.rollout(args.rollout, **init, sample=args.sample)
         traj = {k: v.cpu().numpy() for k, v in traj.items()}   # the readback syncs
         dt = time.perf_counter() - t0
-        for m in modalities:
+        for m in modalities if chief else ():
             _save_images(out_dir, f"rollout_{m}", traj[m][:, 0])
         report["rollout_steps"] = args.rollout
         report["rollout_s"] = round(dt, 4)
     else:
         bs = min(args.batchsize, n)
+        if mesh is not None:
+            bs = -(-bs // mesh.size) * mesh.size    # every rank takes equal rows
         regression = cfg.problem_type == "regression"
         out_keys = ("pose",) if regression else modalities
         preds, lat, rows = {k: [] for k in out_keys}, [], []
@@ -237,14 +273,16 @@ def main(argv=None):
                 preds[k].append(arr[:len(arr) - pad] if pad else arr)
         if regression:
             poses = np.concatenate(preds["pose"])
-            np.save(out_dir / "pred_pose.npy", poses)
             report["pose_mean"] = [round(float(x), 5) for x in poses.mean(0)]
+            if chief:
+                np.save(out_dir / "pred_pose.npy", poses)
             if "pose_min" in session.norms:   # runs carry norms.json now
                 denorm = session.denormalize_pose(poses)
-                np.save(out_dir / "pred_pose_denorm.npy", denorm)
                 report["pose_mean_denorm"] = [round(float(x), 5)
                                               for x in denorm.mean(0)]
-        else:
+                if chief:
+                    np.save(out_dir / "pred_pose_denorm.npy", denorm)
+        elif chief:
             for m in out_keys:
                 _save_images(out_dir, f"pred_{m}", np.concatenate(preds[m]))
         # the first batch includes lazy initialisation; the steady state excludes it
@@ -257,9 +295,10 @@ def main(argv=None):
             # is serving overhead, not delivered frames
             report["frames_per_s"] = round(sum(rows[1:]) / sum(steady), 1)
 
-    with open(out_dir / "infer_report.json", "w") as f:
-        json.dump(report, f, indent=2)
-    print(json.dumps(report))
+    if chief:
+        with open(out_dir / "infer_report.json", "w") as f:
+            json.dump(report, f, indent=2)
+        print(json.dumps(report))
     return report
 
 

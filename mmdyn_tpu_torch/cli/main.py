@@ -9,10 +9,18 @@ It trains on the card; ``--platform cpu`` selects the CPU. A dataset
 directory without a compiled corpus is compiled from its simulator dumps
 first (``data/compile.py``; ``--no-strict-parity`` keeps the last sequence
 that the reference drops).
+
+Data parallelism: ``--num-devices N`` > 1 spawns N processes, one per card
+(``cuda:0``..``cuda:N-1``, NCCL), or N CPU processes (gloo) with
+``--platform cpu``, and trains on the global batch as one process would
+(``parallel/mesh.py``); more cards than are visible is an error. Under
+``torchrun`` the CLI joins the group it finds (``--num-devices`` 0 or its
+size), and ``--num-devices 1`` trains in a one-rank group.
 """
 
 import argparse
 import pickle
+import sys
 
 
 def build_parser():
@@ -52,8 +60,8 @@ def build_parser():
 
     # framework additions
     parser.add_argument("--num-devices", type=int, default=0,
-                        help="Data-parallel over this many devices (0 or 1 = one "
-                             "card; more is not ported yet)")
+                        help="Data-parallel over this many devices, one process "
+                             "each (0 = one device, no process group)")
     parser.add_argument("--resume", action="store_true", default=False)
     parser.add_argument("--log-dir", default=None, type=str,
                         help="Reuse an existing run directory (for --resume)")
@@ -99,19 +107,39 @@ def build_parser():
     return parser
 
 
+def _rank_main(argv):
+    """One spawned rank of ``--num-devices``: the run directory."""
+    return main(argv).log_dir
+
+
 def main(argv=None):
+    """Trains; returns the ``Problem``, or, when ``--num-devices`` spawned
+    the ranks, the run directory."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.num_devices > 1:
-        raise NotImplementedError("data parallelism over several cards is not ported yet")
+    from mmdyn_tpu_torch.parallel import cli_mesh, launched, spawn_cli
+
+    if args.num_devices > 1 and not launched():
+        return spawn_cli(_rank_main, argv, args.num_devices, args.platform)
 
     from mmdyn_tpu_torch import config
+
+    if args.problem_type not in config.PROBLEM_TYPES:
+        raise ValueError(f"Invalid problem type {args.problem_type!r}")
+    mesh = cli_mesh(args.num_devices, args.platform)
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, mesh):
     from mmdyn_tpu_torch.problems.base import ProblemConfig
     from mmdyn_tpu_torch.train.loop import Problem
     from mmdyn_tpu_torch.utils.device import device_for_platform, set_reference_precision
 
-    if args.problem_type not in config.PROBLEM_TYPES:
-        raise ValueError(f"Invalid problem type {args.problem_type!r}")
-    device = device_for_platform(args.platform)
+    device = mesh.device if mesh is not None else device_for_platform(args.platform)
     set_reference_precision()
     cfg = ProblemConfig(
         problem_type=args.problem_type,
@@ -141,11 +169,12 @@ def main(argv=None):
                       strict_parity=not args.no_strict_parity,
                       no_crop=args.no_crop, resume=args.resume,
                       profile_dir=args.profile_dir, image_interval=args.image_interval,
-                      ckpt_interval=args.ckpt_interval, vis_pose=args.vis_pose)
+                      ckpt_interval=args.ckpt_interval, vis_pose=args.vis_pose, mesh=mesh)
 
     # the reference saves the argparse namespace next to the run (main.py:69)
-    with open(problem.log_dir / "problem.pkl", "wb") as f:
-        pickle.dump(vars(args), f)
+    if problem.chief:
+        with open(problem.log_dir / "problem.pkl", "wb") as f:
+            pickle.dump(vars(args), f)
 
     problem.train()
     return problem

@@ -40,7 +40,7 @@ def build_parser():
     p.add_argument("--parity", action="store_true", default=False)
     p.add_argument("--checkpoint", default=None, type=str)
     p.add_argument("--num-devices", default=0, type=int,
-                   help="0 or 1 = one card; more is not ported yet")
+                   help="0 or 1 = one card; several cards are not ported yet")
     p.add_argument("--microbatch-wait-ms", default=0.0, type=float,
                    help="coalesce concurrent predict requests for up to this "
                         "long into one device batch (use with --calibrate: "
@@ -55,9 +55,14 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from mmdyn_tpu_torch.cli.infer import _load_frames, load_session
+    from mmdyn_tpu_torch.cli.infer import _load_frames, check_source, load_session
     from mmdyn_tpu_torch.serve.server import make_server
 
+    check_source(args)
+    if args.num_devices > 1:
+        raise NotImplementedError(
+            "serving on several cards is not ported yet (ROADMAP.md, queue 1 item 5): "
+            "rank 0 would have to broadcast every coalesced batch to the other ranks")
     session = load_session(args)
     if args.calibrate:
         mods = (("visual", "tactile") if session.cfg.cross_modal

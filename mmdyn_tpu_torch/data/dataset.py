@@ -15,6 +15,7 @@ import torch
 
 from mmdyn_tpu_torch.data.compile import compile_dataset, compiled_name_for, load_packed
 from mmdyn_tpu_torch.data.loader import BatchLoader
+from mmdyn_tpu_torch.parallel.mesh import barrier
 
 
 class VisuoTactileArrays:
@@ -70,24 +71,31 @@ def process_grid():
 
 
 def dataset_setup(dataset_path, problem_type, batchsize=128, seed=0, strict_parity=True,
-                  mask_loss=True, crop=True):
+                  mask_loss=True, crop=True, mesh=None):
     """Train / test splits and their loaders (datasets.py:20-66).
 
     Both loaders drop the last incomplete batch; only the train loader
     shuffles, with ``seed``. seq_modeling and regression read only frame 0 of each sequence
     (problems.py:648), so their loaders gather one frame; the seg masks are
-    skipped unless the loss is masked. Under ``torch.distributed`` every
-    process walks the same seeded global order and gathers its own row block.
-    A missing corpus is compiled first, with ``strict_parity``.
+    skipped unless the loss is masked. Under ``torch.distributed`` (the
+    ranks of ``mesh``, else ``process_grid``) every process walks the same
+    seeded global order and gathers its own row block. A missing corpus is
+    compiled first, with ``strict_parity``: by rank 0 of ``mesh``, while
+    the other ranks wait at a barrier.
     """
-    print(f"Loading dataset from {dataset_path}" + ("" if crop else " (no-crop variant)"))
+    if mesh is None or mesh.is_chief:
+        print(f"Loading dataset from {dataset_path}" + ("" if crop else " (no-crop variant)"))
+    if mesh is not None and not mesh.is_chief:
+        barrier(mesh)          # rank 0 compiles a missing corpus first
     train_dataset = VisuoTactileArrays(dataset_path, train=True,
                                        strict_parity=strict_parity, crop=crop)
     test_dataset = VisuoTactileArrays(dataset_path, train=False,
                                       strict_parity=strict_parity, crop=crop)
+    if mesh is not None and mesh.is_chief:
+        barrier(mesh)
     frames = 1 if problem_type in ("seq_modeling", "regression") else None
     skip = () if mask_loss else ("seg",)
-    pidx, pcnt = process_grid()
+    pidx, pcnt = process_grid() if mesh is None else (mesh.rank, mesh.size)
     proc = dict(process_index=pidx, process_count=pcnt) if pcnt > 1 else {}
     loader = lambda ds, shuffle: BatchLoader(  # noqa: E731
         ds.arrays, batchsize, shuffle=shuffle, seed=seed, frames=frames, skip=skip, **proc)

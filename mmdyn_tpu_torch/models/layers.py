@@ -22,6 +22,10 @@ form is here:
   module name, as the JAX ``bn_stats`` collection does.
 * ``dropout`` — inverted dropout drawing its mask from an explicit
   ``torch.Generator``.
+* Data parallelism: inside ``parallel.sharded(mesh)`` over more than one
+  rank, the batch-statistics modes take each statistic over every rank's
+  rows (``parallel.mesh.var_mean``) and dropout draws its mask at the global
+  shape, keeping this rank's rows, as the JAX package's SPMD step does.
 * ``Mlp`` — the reference ``mlp()`` stack: Linear -> act for all but the last
   layer (vae.py:14-19); its children are numbered as the reference's.
 * ``Linear`` / ``Conv2d`` / ``ConvTranspose2d`` — torch's layers under an
@@ -49,6 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmdyn_tpu_torch.config import BN_EPS
+from mmdyn_tpu_torch.parallel.mesh import active_mesh, global_draw, var_mean
 
 POLICIES = ("float32", "bfloat16", "bfloat16_full")
 
@@ -87,7 +92,8 @@ def uncast(y, compute_dtype):
 
 def train_batch_norm(x, weight, bias, groups=1, eps=BN_EPS):
     """Batch-statistics BN of an (G*N, C, ...) tensor, statistics taken per
-    (group, channel) over the N rows of the group and the spatial dims.
+    (group, channel) over the N rows of the group and the spatial dims (and
+    over every rank's rows inside ``parallel.sharded``).
 
     The statistics are float32 whatever the activation dtype; a bf16 input
     is normalised in bf16, as JAX ``_train_bn_fwd_math`` does (upcasting
@@ -96,7 +102,11 @@ def train_batch_norm(x, weight, bias, groups=1, eps=BN_EPS):
     if n % groups:
         raise ValueError(f"batch {n} does not split into {groups} groups")
     xg = x.reshape(groups, n // groups, c, -1)
-    var, mean = torch.var_mean(xg.float(), dim=(1, 3), correction=0, keepdim=True)
+    mesh = active_mesh()
+    if mesh is None:
+        var, mean = torch.var_mean(xg.float(), dim=(1, 3), correction=0, keepdim=True)
+    else:
+        var, mean = var_mean(xg.float(), (1, 3), mesh)
     inv = torch.rsqrt(var + eps)
     weight, bias = weight.reshape(1, 1, c, 1), bias.reshape(1, 1, c, 1)
     if x.dtype == torch.float32:
@@ -144,7 +154,11 @@ class TrainBatchNorm(nn.Module):
         if self.mode == "collect":
             if groups != 1:
                 raise ValueError("a collect pass takes one group of statistics")
-            var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), correction=0)
+            mesh = active_mesh()
+            if mesh is None:
+                var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), correction=0)
+            else:
+                var, mean = var_mean(x.detach().float(), (0, 2, 3), mesh, keepdim=False)
             self.mean.copy_(mean)
             self.var.copy_(var)
         return train_batch_norm(x, self.weight, self.bias, groups, self.eps)
@@ -177,7 +191,8 @@ def dropout(x, rate: float, generator=None):
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = global_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                       x.shape) < keep
     return torch.where(mask, x / keep, 0.0)
 
 

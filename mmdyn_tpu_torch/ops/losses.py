@@ -40,9 +40,12 @@ def kl_divergence(mu, logvar):
     return -0.5 * torch.sum(1.0 + logvar - torch.square(mu) - torch.exp(logvar))
 
 
-def elbo_loss(recon_logits, x, mu, logvar, kl_weight=1.0, loss_mask=None):
-    """VAE ELBO (problems.py:401-419): (BCE_sum + kl_weight * KLD) / B."""
-    batch_size = x.shape[0]
+def elbo_loss(recon_logits, x, mu, logvar, kl_weight=1.0, loss_mask=None,
+              batch_size=None):
+    """VAE ELBO (problems.py:401-419): (BCE_sum + kl_weight * KLD) / B, B
+    the rows of ``x`` unless ``batch_size`` (the global batch of a rank's
+    rows) is given."""
+    batch_size = x.shape[0] if batch_size is None else batch_size
     kld = kl_divergence(mu, logvar)
     recon = torch.reshape(recon_logits, x.shape)
     if loss_mask is not None:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from mmdyn_tpu_torch.config import POE_EPS
+from mmdyn_tpu_torch.parallel.mesh import global_draw
 
 
 def prior_expert(shape, device=None, dtype=torch.float32):
@@ -51,8 +52,9 @@ def masked_poe(mu, logvar, mask, eps=POE_EPS):
 
 def reparametrize(generator, mu, logvar):
     """z = eps * std + mu with eps ~ N(0, I) drawn from ``generator``
-    (vae.py:52-61). The generator must live on mu's device."""
+    (vae.py:52-61). The generator must live on mu's device; inside
+    ``parallel.sharded`` the noise is this rank's rows of a global draw."""
     std = torch.exp(0.5 * logvar)
-    eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                      dtype=mu.dtype)
+    eps = global_draw(lambda s: torch.randn(s, generator=generator, device=mu.device,
+                                            dtype=mu.dtype), mu.shape)
     return eps * std + mu

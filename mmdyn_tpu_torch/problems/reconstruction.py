@@ -20,6 +20,11 @@ problems.py:473-529). As in the JAX package, the same loss is computed with:
 A conditional MVAE hands its condition to both image encoders and both image
 decoders, never to the pose pair. The VAE and the regressor run no kernel:
 their losses are plain in the JAX package too.
+
+Data parallelism: inside ``parallel.sharded`` a rank evaluates its row block
+of the global batch; the noise is its rows of a global draw and the ELBOs
+divide by the global batch (``parallel.mesh.global_rows``), so the ranks'
+losses sum to the one process's.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from mmdyn_tpu_torch.ops.kernels import fused_masked_bce_sum, fused_poe_reparam
 from mmdyn_tpu_torch.ops.losses import bce_with_logits, elbo_loss, kl_divergence, mse
+from mmdyn_tpu_torch.parallel.mesh import global_draw, global_rows
 
 # Expert order: [prior, visual, tactile] (+ [pose]).
 # Subset rows mirror the reference pass order (problems.py:478-529).
@@ -125,8 +131,8 @@ def mvae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
     if cfg.noise_free:
         noise = torch.zeros(noise_shape, dtype=mu_v.dtype, device=mu_v.device)
     else:
-        noise = torch.randn(noise_shape, generator=generator,
-                            dtype=mu_v.dtype, device=mu_v.device)
+        noise = global_draw(lambda s: torch.randn(s, generator=generator, dtype=mu_v.dtype,
+                                                  device=mu_v.device), noise_shape, dim=1)
     z, pd_mu, pd_lv = fused_poe_reparam(mu_m, lv_m, subsets, noise)
 
     recon_v = model.decode_visual(z.index_select(0, vis_idx), condition)
@@ -141,7 +147,7 @@ def mvae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
 
     # KLD summed over every subset's posterior == the sum of per-pass KLDs
     kld = kl_divergence(pd_mu, pd_lv)
-    loss = (recon_error + kl_weight * kld) / visual.shape[0]
+    loss = (recon_error + kl_weight * kld) / global_rows(visual.shape[0])
 
     with torch.no_grad():
         perf = {"visual": bce_with_logits(recon_v[1], t_v, "mean"),
@@ -168,7 +174,8 @@ def vae_evaluate(model, generator, inputs, targets, kl_weight, cfg):
     target = targets["x"]
     loss_mask = targets.get("loss_mask") if cfg.mask_loss else None
     recon, mu, lv = model(x, condition, generator)
-    loss = elbo_loss(recon, target, mu, lv, kl_weight=kl_weight, loss_mask=loss_mask)
+    loss = elbo_loss(recon, target, mu, lv, kl_weight=kl_weight, loss_mask=loss_mask,
+                     batch_size=global_rows(target.shape[0]))
     recon = recon.detach().reshape(target.shape)
     perf = {cfg.input_type: bce_with_logits(recon, target, "mean")}
     return loss, {"recon_x": recon, "perf_measure": perf,

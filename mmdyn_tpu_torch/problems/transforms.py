@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from mmdyn_tpu_torch.parallel.mesh import global_draw, roll_rows
+
 
 def flatten_seq(x):
     """(B, T, ...) -> (B*T, ...), the seq_collate_fn layout."""
@@ -29,8 +31,10 @@ def stride_first(x):
 
 def dyn_roll(x):
     """(B, T, ...) -> (B*T, ...) shifted by one over the flattened axis,
-    wrapping across sequence boundaries like ``torch.roll(flat, -1, 0)``."""
-    return torch.roll(flatten_seq(x), -1, dims=0)
+    wrapping across sequence boundaries like ``torch.roll(flat, -1, 0)``;
+    inside ``parallel.sharded`` over the global batch, as the JAX package's
+    roll of a sharded array."""
+    return roll_rows(flatten_seq(x))
 
 
 def _geom(x, flip, dy, dx):
@@ -49,13 +53,19 @@ def _geom(x, flip, dy, dx):
 def augment_draws(generator, b, max_shift=4, brightness=0.1, device=None):
     """Per-sequence draws of ``augment_batch``: flip (B,) bool with p=0.5,
     dy and dx (B,) integers in [-max_shift, max_shift], scale (B,) uniform in
-    1 +- brightness."""
-    flip = torch.rand(b, generator=generator, device=device) < 0.5
-    dy = torch.randint(-max_shift, max_shift + 1, (b,), generator=generator,
-                       device=device)
-    dx = torch.randint(-max_shift, max_shift + 1, (b,), generator=generator,
-                       device=device)
-    u = torch.rand(b, generator=generator, device=device)
+    1 +- brightness. Inside ``parallel.sharded`` each is this rank's rows of
+    a draw for the global batch."""
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    def shift(shape):
+        return torch.randint(-max_shift, max_shift + 1, shape, generator=generator,
+                             device=device)
+
+    flip = global_draw(rand, (b,)) < 0.5
+    dy = global_draw(shift, (b,))
+    dx = global_draw(shift, (b,))
+    u = global_draw(rand, (b,))
     return flip, dy, dx, 1.0 + (2.0 * u - 1.0) * brightness
 
 
@@ -94,6 +104,8 @@ def dyn_targets(x, final):
     """One-step dynamics image targets: ``dyn_roll`` with each sequence's
     last frame replaced by its resting frame ``final`` (B, ...)."""
     b, t = x.shape[0], x.shape[1]
-    target = dyn_roll(x).reshape((b, t) + tuple(x.shape[2:]))  # a fresh copy
+    # the roll's wrap lands on the last frames, which the resting frames
+    # replace: a local roll is the global one here
+    target = torch.roll(flatten_seq(x), -1, dims=0).reshape(x.shape)  # a fresh copy
     target[:, t - 1] = final
     return flatten_seq(target)

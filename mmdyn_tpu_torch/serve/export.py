@@ -50,7 +50,9 @@ def export_session(session, out_dir, batch_size=1, modalities=None,
                    conditional=False, sample=False):
     """Serialize the session's predictor for a fixed batch size on the
     session's device. ``modalities=None`` derives the input set from the
-    session's config. Returns the manifest dict."""
+    session's config. Returns the manifest dict. A session of more than
+    one rank raises (``InferenceSession`` doc)."""
+    session._require_one_rank("export")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     cfg = session.cfg

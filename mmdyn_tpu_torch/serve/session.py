@@ -28,6 +28,16 @@ the prior expert; absent modalities are not encoded.
 Randomness: ``sample_prior``, ``predict(sample=True)`` and ``rollout`` draw
 from a ``torch.Generator`` on the session's device (the session's own, or
 one passed in). They cannot reproduce the JAX package's draws.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``), as the JAX package's
+multi-controller mode: every rank calls ``predict``, ``rollout`` or
+``freeze_bn`` with the whole batch; each computes its row block, with
+BatchNorm statistics and noise draws taken over the global batch, and every
+rank returns the whole result, gathered by an all-reduce of a zero-filled
+buffer (gloo has no all-gather of CUDA tensors). ``sample_prior`` runs whole
+on every rank. The CUDA-graph predictor and ``export`` raise under a group
+of more than one rank: a gloo collective cannot be captured in a CUDA
+graph (``ROADMAP.md``, queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import torch
 from mmdyn_tpu_torch.models import model_kwargs, setup_model
 from mmdyn_tpu_torch.models.layers import bn_stats, load_bn_stats
 from mmdyn_tpu_torch.ops.poe import product_of_experts
+from mmdyn_tpu_torch.parallel.mesh import gather_rows, global_draw, shard_batch, sharded
 from mmdyn_tpu_torch.problems.base import ProblemConfig
 from mmdyn_tpu_torch.train.checkpoint import latest_checkpoint
 from mmdyn_tpu_torch.utils.device import resolve_device
@@ -105,12 +116,14 @@ class InferenceSession:
     ``state_dict`` is the port's (``setup_model``'s names); ``bn_stats``
     ({BatchNorm module name: {"mean", "var"}}) builds a frozen-BatchNorm
     session. Without ``device`` the session runs on the card and raises
-    when there is none.
+    when there is none; with ``mesh`` it is one rank of a data-parallel
+    session on ``mesh.device`` (module doc).
     """
 
     def __init__(self, cfg: ProblemConfig, state_dict, parity: bool = False,
-                 bn_stats=None, norms=None, device=None):
-        self.device = resolve_device(device)
+                 bn_stats=None, norms=None, device=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if self.device.type == "cuda":
             # cuDNN's default algorithms for the decoders' transposed
             # convolutions are not deterministic: the same batch reruns to
@@ -141,7 +154,7 @@ class InferenceSession:
     # ------------------------------------------------------------------
     @classmethod
     def from_run(cls, run_dir, parity: bool = False, compute_dtype=None,
-                 checkpoint: Optional[str] = None, device=None):
+                 checkpoint: Optional[str] = None, device=None, mesh=None):
         """Load <run>/problem.pkl + the latest (or named) checkpoint of a run
         this package trained. The policy is the one ``norms.json`` records,
         unless ``compute_dtype`` overrides it. A run the JAX package trained
@@ -173,13 +186,13 @@ class InferenceSession:
         else:
             condition_dim = _infer_condition_dim(cfg, state_dict)
         cfg = dataclasses.replace(cfg, condition_dim=condition_dim)
-        return cls(cfg, state_dict, parity=parity, norms=norms, device=device)
+        return cls(cfg, state_dict, parity=parity, norms=norms, device=device, mesh=mesh)
 
     @classmethod
     def from_torch_ckpt(cls, ckpt_path, problem_type="seq_modeling",
                         model_name="cnn-mvae", input_type="visuotactile",
                         conditional=False, parity=False, norms=None,
-                        compute_dtype="float32", device=None):
+                        compute_dtype="float32", device=None, mesh=None):
         """Serve a reference-format torch checkpoint
         (``torch.save({'model': state_dict, ...})``, problems.py:580-586):
         the names are the port's, the BatchNorm running buffers are dropped.
@@ -200,14 +213,42 @@ class InferenceSession:
                             conditional=conditional, latent_size=latent,
                             compute_dtype=compute_dtype)
         cfg = dataclasses.replace(cfg, condition_dim=_infer_condition_dim(cfg, sd))
-        return cls(cfg, sd, parity=parity, norms=norms, device=device)
+        return cls(cfg, sd, parity=parity, norms=norms, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------
     # prediction cores: tensors on the session's device in, tensors out
 
     def _noise(self, batch: int, generator):
-        return torch.randn((posterior_rows(self.cfg.model_name, batch), self.cfg.latent_size),
-                           generator=generator, device=self.device)
+        return global_draw(lambda s: torch.randn(s, generator=generator, device=self.device),
+                           (posterior_rows(self.cfg.model_name, batch), self.cfg.latent_size))
+
+    def _shard(self, inputs, condition):
+        """This rank's rows of the inputs and the condition (all of them
+        without a mesh)."""
+        if self.mesh is None:
+            return inputs, condition
+        return (shard_batch(self.mesh, inputs),
+                None if condition is None else shard_batch(self.mesh, condition))
+
+    def _whole(self, out):
+        """Every rank's rows of each output, on every rank."""
+        if self.mesh is None:
+            return out
+        return {k: gather_rows(self.mesh, v) for k, v in out.items()}
+
+    def _whole_traj(self, traj):
+        """``_whole`` of (steps, B, ...) trajectories, batch on axis 1."""
+        if self.mesh is None:
+            return traj
+        return {k: gather_rows(self.mesh, v.transpose(0, 1)).transpose(0, 1)
+                for k, v in traj.items()}
+
+    def _require_one_rank(self, what):
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                f"{what} under a process group of {self.mesh.size} ranks is not ported "
+                f"(ROADMAP.md, queue 1 item 5): a gloo collective cannot be captured in a "
+                f"CUDA graph or an exported program; call predict")
 
     def _posterior(self, inputs, condition, generator):
         """Joint PoE posterior over the present modalities (vae.py:126-165)."""
@@ -321,14 +362,15 @@ class InferenceSession:
         predictions plus the joint posterior (mu, logvar). ``sample`` draws z
         with noise from ``generator`` (default: the session's).
         """
-        with torch.inference_mode():
-            inputs = self._gather(visual, tactile, pose)
-            cond = self._gather_condition(condition)
+        with torch.inference_mode(), sharded(self.mesh):
+            inputs, cond = self._shard(self._gather(visual, tactile, pose),
+                                       self._gather_condition(condition))
             gen = generator or self.generator
             noise = None
             if sample and self.cfg.problem_type != "regression":
                 noise = self._noise(next(iter(inputs.values())).shape[0], gen)
-            return self._predict_core(inputs, cond, noise, bool(uint8_images), gen)
+            return self._whole(self._predict_core(inputs, cond, noise, bool(uint8_images),
+                                                  gen))
 
     def denormalize_pose(self, pose):
         """Invert the dataset's min-max pose normalisation
@@ -381,9 +423,9 @@ class InferenceSession:
         if self.cfg.problem_type == "regression":
             raise ValueError("rollout needs a generative model (the "
                              "regressor's pose output cannot be fed back)")
-        with torch.inference_mode():
-            carry = self._gather(visual, tactile, pose)
-            cond = self._gather_condition(condition)
+        with torch.inference_mode(), sharded(self.mesh):
+            carry, cond = self._shard(self._gather(visual, tactile, pose),
+                                      self._gather_condition(condition))
             gen = generator or self.generator
             keep = tuple(sorted(carry))
             ys = []
@@ -394,7 +436,7 @@ class InferenceSession:
                 carry = {k: preds[k] for k in keep}
                 ys.append({k: v for k, v in preds.items()
                            if k in keep or k in ("mu", "logvar")})
-            traj = {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
+            traj = self._whole_traj({k: torch.stack([y[k] for y in ys]) for k in ys[0]})
             if uint8_images:
                 traj = {k: (_uint8(v) if v.dim() == 5 else v) for k, v in traj.items()}
             return traj
@@ -418,18 +460,20 @@ class InferenceSession:
         collect = _build_model(self.cfg, self.device, dropout_rate=0.0, bn_mode="collect")
         collect.load_state_dict(self.model.state_dict(), strict=True)
         gen = generator or self.generator
-        cond = (self._tensor(condition)
-                if (condition is not None and self.cfg.conditional) else None)
-        with torch.inference_mode():
+
+        def rows(x):     # this rank's rows (under a mesh) as a device tensor
+            return self._shard(self._tensor(x), None)[0]
+
+        cond = rows(condition) if (condition is not None and self.cfg.conditional) else None
+        with torch.inference_mode(), sharded(self.mesh):
             if self.cfg.is_mvae and self.cfg.problem_type != "regression":
                 if visual is None or tactile is None:
                     raise ValueError("MVAE calibration needs visual AND tactile "
                                      "(every BN layer must execute)")
-                p = (self._tensor(pose) if (pose is not None and self.cfg.use_pose)
-                     else None)
-                collect((self._tensor(visual), self._tensor(tactile)), p, cond, gen)
+                p = rows(pose) if (pose is not None and self.cfg.use_pose) else None
+                collect((rows(visual), rows(tactile)), p, cond, gen)
             else:
-                collect(self._tensor(visual if visual is not None else tactile), cond, gen)
+                collect(rows(visual if visual is not None else tactile), cond, gen)
         stats = bn_stats(collect)
         if not stats:
             # BN-free architectures (mlp stacks) have nothing to calibrate:
@@ -438,7 +482,8 @@ class InferenceSession:
                           "returning the session unchanged", stacklevel=2)
             return self
         return InferenceSession(self.cfg, self.model.state_dict(), parity=self.parity,
-                                bn_stats=stats, norms=self.norms, device=self.device)
+                                bn_stats=stats, norms=self.norms, device=self.device,
+                                mesh=self.mesh)
 
     # ------------------------------------------------------------------
     def aot_predict(self, batch_size, modalities=("visual", "tactile"),
@@ -447,6 +492,7 @@ class InferenceSession:
         (cached): on the card a CUDA graph, replayed on static buffers; on a
         CPU session (asked for explicitly) the eager fixed-shape callable.
         Returns a ``FixedBatchPredictor``: ``fn(inputs, condition=None)``."""
+        self._require_one_rank("the CUDA-graph predictor")
         key = (int(batch_size), tuple(sorted(modalities)), bool(conditional),
                bool(sample), bool(uint8_images))
         if key not in self._aot_cache:

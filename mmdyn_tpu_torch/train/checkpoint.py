@@ -9,6 +9,10 @@ One file per checkpoint under ``<checkpoint_dir>``, written with
 Each holds the model's and the optimizer's ``state_dict``, the step count,
 the epoch, the best validation loss, the position in the epoch and the
 training generator's state (the JAX package stores its PRNG key there).
+The model's is the bare model's ``state_dict`` whatever the number of ranks
+that trained it, so a run checkpointed by N ranks resumes in one process and
+the reverse. Under a mesh rank 0 writes and every rank waits for the file;
+every rank restores.
 """
 
 from __future__ import annotations
@@ -19,9 +23,12 @@ from typing import Optional
 
 import torch
 
+from mmdyn_tpu_torch.parallel.mesh import barrier
+
 
 def save_checkpoint(checkpoint_dir, state, epoch: int, best_loss: float,
-                    name: Optional[str] = None, generator=None, batch_in_epoch: int = 0):
+                    name: Optional[str] = None, generator=None, batch_in_epoch: int = 0,
+                    mesh=None):
     """Save a snapshot as ``<checkpoint_dir>/<name>``, ``epoch_<epoch>`` by
     default (problems.py:585).
 
@@ -30,8 +37,14 @@ def save_checkpoint(checkpoint_dir, state, epoch: int, best_loss: float,
     after its first k optimizer steps: a resume replays the epoch's order
     (a function of (seed, epoch)), skips k batches and continues with the
     saved generator state, as the uninterrupted run would have.
+
+    With ``mesh`` only rank 0 writes (the ranks hold equal states), and
+    every rank returns once the file is in place.
     """
     path = Path(checkpoint_dir) / (name or f"epoch_{epoch}")
+    if mesh is not None and not mesh.is_chief:
+        barrier(mesh)
+        return path
     payload = {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
@@ -44,6 +57,8 @@ def save_checkpoint(checkpoint_dir, state, epoch: int, best_loss: float,
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)          # a reader never sees a partial file
+    if mesh is not None:
+        barrier(mesh)
     return path
 
 

@@ -10,6 +10,17 @@ draw of dropout, noise and augmentation comes from one training generator
 on the device, whose state the checkpoints carry; prior samples for the
 image log come from generators seeded apart from it, so logging less often
 changes nothing else.
+
+Data parallelism (``mesh``, one process per device): every rank runs the
+loop on its row block of each global batch, through the data-parallel steps
+(``train/steps.py``), so the losses, checkpoints and logs are the one
+process's on the global batch. Rank 0 names the run directory and alone
+writes files: checkpoints (``save_checkpoint`` waits for them on every
+rank), metrics, images, prior samples, ``norms.json`` and the results. The
+image panels take the global batch's first rows, gathered from the ranks.
+Prior samples run on rank 0 alone, with its local BatchNorm statistics:
+no collective runs there. A SIGTERM to any rank stops every rank at the
+same step (``parallel.mesh.agree``).
 """
 
 from __future__ import annotations
@@ -30,11 +41,13 @@ import torch
 from mmdyn_tpu_torch.data.dataset import dataset_setup
 from mmdyn_tpu_torch.data.loader import device_prefetch
 from mmdyn_tpu_torch.models.factory import count_parameters, model_kwargs, setup_model
+from mmdyn_tpu_torch.parallel.mesh import (agree, broadcast_object, gather_rows, replicate,
+                                           sharded)
 from mmdyn_tpu_torch.problems.base import (ProblemConfig, anneal_kl, make_optimizer,
                                            select_compute_dtype)
 from mmdyn_tpu_torch.train.checkpoint import (latest_checkpoint, restore_checkpoint,
                                               save_checkpoint)
-from mmdyn_tpu_torch.train.metrics import MetricWriter
+from mmdyn_tpu_torch.train.metrics import MetricWriter, NullWriter
 from mmdyn_tpu_torch.train.profiler import StepTimer, trace
 from mmdyn_tpu_torch.train.state import create_train_state
 from mmdyn_tpu_torch.train.steps import make_eval_step, make_sample_fn, make_train_step
@@ -51,13 +64,17 @@ def stream_seed(*words: int) -> int:
 
 class Problem:
     """Trains one problem configuration end to end, on the card
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise; with ``mesh``, one rank of a
+    data-parallel run on ``mesh.device`` (module doc)."""
 
     def __init__(self, cfg: ProblemConfig, dataset_path, save_name="run",
                  logs_root="./logs", log_dir=None, seed=0, device=None,
                  tensorboard=True, strict_parity=True, resume=False, profile_dir=None,
-                 image_interval=1, ckpt_interval=1, vis_pose=False, no_crop=False):
-        self.device = resolve_device(device)
+                 image_interval=1, ckpt_interval=1, vis_pose=False, no_crop=False,
+                 mesh=None):
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.is_chief
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.seed = seed
         self.profile_dir = profile_dir
         # the reference logs images and checkpoints every epoch
@@ -78,25 +95,31 @@ class Problem:
         if log_dir:
             self.log_dir = Path(log_dir)
         else:
-            self.log_dir = Path(logs_root) / (save_name + datetime.now().strftime(
-                "_%Y_%m_%d_%H_%M_%S"))
+            name = save_name + datetime.now().strftime("_%Y_%m_%d_%H_%M_%S")
+            if mesh is not None:
+                name = broadcast_object(mesh, name)    # rank 0's clock names the run
+            self.log_dir = Path(logs_root) / name
         self.checkpoint_dir = self.log_dir / "checkpoint"
         self.tensorboard_dir = self.log_dir / "tensorboard"
         self.plot_dir = self.log_dir / "plot"
-        for d in (self.log_dir, self.checkpoint_dir, self.tensorboard_dir, self.plot_dir):
-            d.mkdir(parents=True, exist_ok=True)
-        self.writer = MetricWriter(self.tensorboard_dir, tensorboard=tensorboard)
+        if self.chief:
+            for d in (self.log_dir, self.checkpoint_dir, self.tensorboard_dir,
+                      self.plot_dir):
+                d.mkdir(parents=True, exist_ok=True)
+            self.writer = MetricWriter(self.tensorboard_dir, tensorboard=tensorboard)
+        else:
+            self.writer = NullWriter()
 
         # --- corpus ---
         # a dataset directory without a corpus is compiled here, on the host
         dd = dataset_setup(dataset_path, cfg.problem_type, batchsize=cfg.batchsize,
                            seed=seed, strict_parity=strict_parity,
-                           mask_loss=cfg.mask_loss, crop=not no_crop)
+                           mask_loss=cfg.mask_loss, crop=not no_crop, mesh=mesh)
         self.train_dataset, self.test_dataset = dd["train_dataset"], dd["test_dataset"]
         self.train_loader, self.test_loader = dd["train_loader"], dd["test_loader"]
         self.seq_length = dd["seq_length"]
-        print(f"dataset: {len(self.train_dataset)} train / {len(self.test_dataset)} test "
-              f"sequences  (seq_length {self.seq_length})")
+        self._log(f"dataset: {len(self.train_dataset)} train / {len(self.test_dataset)} "
+                  f"test sequences  (seq_length {self.seq_length})")
         if len(self.train_loader) == 0 and cfg.num_epochs > 0:
             # an evaluation-only reattachment (num_epochs=0) takes no step
             raise ValueError(
@@ -109,7 +132,7 @@ class Problem:
                    f"the batch size ({cfg.batchsize}) and drop_last is on (reference "
                    f"semantics): validation loss will read 0. Use a smaller batch or "
                    f"more data.")
-            print(f"WARNING: {msg}")
+            self._log(f"WARNING: {msg}")
             self.writer.text("warnings/empty_test_split", msg)
 
         # --- the condition's width and the policy, known once the corpus is ---
@@ -124,30 +147,46 @@ class Problem:
         norms["condition_dim"] = condition_dim
         norms["compute_dtype"] = self.cfg.compute_dtype
         norms["crop"] = self.train_dataset.crop
-        with open(self.log_dir / "norms.json", "w") as f:
-            json.dump(norms, f, indent=2)
+        if self.chief:
+            with open(self.log_dir / "norms.json", "w") as f:
+                json.dump(norms, f, indent=2)
 
         # --- model, optimizer, steps ---
         self.model = setup_model(self.cfg.model_name, cross_modal=self.cfg.cross_modal,
                                  device=self.device, seed=seed, **model_kwargs(self.cfg))
-        print(f"model: {self.cfg.model_name}  params: {count_parameters(self.model):,}  "
-              f"compute_dtype: {self.cfg.compute_dtype}  device: {self.device}")
+        if mesh is not None:
+            replicate(mesh, self.model)
+        self._log(f"model: {self.cfg.model_name}  params: "
+                  f"{count_parameters(self.model):,}  compute_dtype: "
+                  f"{self.cfg.compute_dtype}  device: {self.device}"
+                  + ("" if mesh is None else f" x {mesh.size} ranks"))
         self.generator = torch.Generator(self.device).manual_seed(
             stream_seed(seed, TRAIN_STREAM))
         self.state = create_train_state(self.model,
                                         make_optimizer(self.cfg, self.model.parameters()))
-        self.train_step = make_train_step(self.cfg, device=self.device)
-        self.eval_step = make_eval_step(self.cfg, device=self.device)
+        self.train_step = make_train_step(self.cfg, device=self.device, mesh=mesh)
+        self.eval_step = make_eval_step(self.cfg, device=self.device, mesh=mesh)
         self.sample_fn = make_sample_fn(self.cfg, n=50, device=self.device)
 
         if resume:
             self._resume()
 
+    def _log(self, msg):
+        if self.chief:
+            print(msg)
+
+    def _stop_agreed(self):
+        """Whether any rank asked for a stop (this process's flag alone
+        without a mesh)."""
+        if self.mesh is None:
+            return self._stop_requested
+        return agree(self.mesh, self._stop_requested)
+
     # ------------------------------------------------------------------
     def _resume(self):
         path = latest_checkpoint(self.checkpoint_dir)
         if path is None:
-            print("resume requested but no checkpoint found; starting fresh")
+            self._log("resume requested but no checkpoint found; starting fresh")
             return
         epoch, self._best_loss, gen_state, batch_in_epoch = restore_checkpoint(
             path, self.state)
@@ -158,12 +197,12 @@ class Problem:
             # a SIGTERM snapshot: replay epoch `epoch` (its order is a function
             # of (seed, epoch)) without the steps already taken
             self._start_epoch, self._skip_batches = epoch, batch_in_epoch
-            print(f"resumed from {path} mid-epoch {epoch} (skipping {batch_in_epoch} "
-                  f"completed steps, best val loss {self._best_loss:.4f})")
+            self._log(f"resumed from {path} mid-epoch {epoch} (skipping {batch_in_epoch} "
+                      f"completed steps, best val loss {self._best_loss:.4f})")
         else:
             self._start_epoch = epoch + 1
-            print(f"resumed from {path} at epoch {epoch} "
-                  f"(best val loss {self._best_loss:.4f})")
+            self._log(f"resumed from {path} at epoch {epoch} "
+                      f"(best val loss {self._best_loss:.4f})")
         for loader in (self.train_loader, self.test_loader):
             loader.set_epoch(self._start_epoch)
 
@@ -200,15 +239,16 @@ class Problem:
                 for k, v in metrics.items():
                     if k != "loss":
                         perf_acc[k].append(v)
-                if self._stop_requested:
+                if self._stop_agreed():
                     # SIGTERM: an exact snapshot of the state, the generator and
                     # the position, then unwind; train() stops the run
                     save_checkpoint(self.checkpoint_dir, self.state, epoch,
                                     self._best_loss, name="latest",
-                                    generator=self.generator, batch_in_epoch=b + 1)
+                                    generator=self.generator, batch_in_epoch=b + 1,
+                                    mesh=self.mesh)
                     self._preempted = True
-                    print(f"preempted: saved 'latest' at epoch {epoch} step "
-                          f"{b + 1}/{n_batches}; resume with --resume")
+                    self._log(f"preempted: saved 'latest' at epoch {epoch} step "
+                              f"{b + 1}/{n_batches}; resume with --resume")
                     break
         self._step_timer.mark()
         step_losses, perf = self._read(losses, perf_acc)
@@ -247,18 +287,28 @@ class Problem:
                 sum(vs) / max(n_batches, 1))
         return val_loss, last_aux
 
+    def _rows(self, x, n):
+        """The global batch's first ``n`` rows of ``x`` (this rank's rows)."""
+        return x[:n] if self.mesh is None else gather_rows(self.mesh, x, n)
+
     def _write_images(self, epoch, aux, n_images=120):
         """Input / output / target panels (problems.py:588-614), to TensorBoard:
-        nothing is copied off the device without it."""
-        if aux is None or "recon_x" not in aux or not self.writer.tensorboard:
+        nothing is copied off the device without it. Under a mesh every rank
+        takes part in gathering the rows; rank 0 writes them."""
+        # rank 0's writer decides; every rank then takes part in the gathers
+        logs = (self.writer.tensorboard if self.mesh is None
+                else agree(self.mesh, self.writer.tensorboard))
+        if aux is None or "recon_x" not in aux or not logs:
             return
         nrow = self.seq_length if self.seq_length > 1 else int(np.sqrt(self.cfg.batchsize))
         recon = aux["recon_x"]
 
         def log(tag, logits):
             if logits.dim() == 4:
-                images = torch.sigmoid(logits[:n_images].float()).cpu().numpy()
-                self.writer.image_grid(tag, np.clip(images, 0, 1), epoch, nrow=nrow)
+                logits = self._rows(logits, n_images)
+                if self.writer.tensorboard:
+                    images = torch.sigmoid(logits.float()).cpu().numpy()
+                    self.writer.image_grid(tag, np.clip(images, 0, 1), epoch, nrow=nrow)
 
         if isinstance(recon, dict):
             log("Output_img/validation_visual", recon["visual"])
@@ -272,17 +322,22 @@ class Problem:
             from mmdyn_tpu_torch.problems.specs import parse_batch
             from mmdyn_tpu_torch.utils.plots import (plot_pose_tensorboard,
                                                      plot_single_pose_tensorboard)
-            ins, tgts = parse_batch(self.cfg, self._last_eval_batch)
+            with sharded(self.mesh):
+                ins, tgts = parse_batch(self.cfg, self._last_eval_batch)
             n = min(n_images, 16)   # host-side matplotlib figures: capped
+            poses = [self._rows(x, n) for x in (ins["pose"], recon["pose"], tgts["pose"])]
+            if not self.writer.tensorboard:
+                return
+            inp, out, tgt = (x.cpu().numpy() for x in poses)
             self.writer.figure("Pose_validation/input", plot_single_pose_tensorboard(
-                ins["pose"][:n].cpu().numpy(), seq_length=self.seq_length), epoch)
+                inp, seq_length=self.seq_length), epoch)
             self.writer.figure("Pose_validation/output_vs_target", plot_pose_tensorboard(
-                recon["pose"][:n].cpu().numpy(), tgts["pose"][:n].cpu().numpy(),
-                seq_length=self.seq_length), epoch)
+                out, tgt, seq_length=self.seq_length), epoch)
 
     def _sample(self, epoch):
         """Prior samples to TensorBoard, drawn from the epoch's own sample
-        generator (never from the training one)."""
+        generator (never from the training one); on rank 0 alone, outside
+        ``sharded``: its BatchNorm statistics are its own, no collective."""
         if self.sample_fn is None or not self.writer.tensorboard:
             return
         gen = torch.Generator(self.device).manual_seed(
@@ -303,7 +358,8 @@ class Problem:
         SIGTERM asks for a stop: the loop saves an exact snapshot as
         ``latest`` at the next step boundary and returns, and a ``resume``
         run continues it as the uninterrupted run would have gone on
-        (bit-identical on the CPU). Single process only.
+        (bit-identical on the CPU). Under a mesh a SIGTERM to any rank stops
+        them all at one step.
         """
         cfg = self.cfg
 
@@ -319,10 +375,11 @@ class Problem:
             pass    # not the main thread: no handler
         try:
             for epoch in range(self._start_epoch, cfg.num_epochs):
-                print(f"Epoch: {epoch}")
+                self._log(f"Epoch: {epoch}")
                 kl_weight = anneal_kl(epoch, cfg.annealing_epochs)
-                # profile the second epoch: the first pays the warm-up
-                do_profile = self.profile_dir and epoch == self._start_epoch + 1
+                # profile the second epoch (the first pays the warm-up), rank 0's
+                do_profile = (self.profile_dir and epoch == self._start_epoch + 1
+                              and self.chief)
                 with trace(self.profile_dir if do_profile else None):
                     self._train_epoch(epoch, kl_weight)
                 if self._preempted:
@@ -336,15 +393,19 @@ class Problem:
                     self.writer.scalar(key, values[-1], epoch)
                 self.writer.flush()
 
+                # the validation loss is the global batch's, equal on every rank
                 if val_loss < self._best_loss:
                     self._best_loss = val_loss
-                    save_checkpoint(self.checkpoint_dir, self.state, epoch, self._best_loss)
-                if epoch % self.ckpt_interval == 0 or last_epoch or self._stop_requested:
                     save_checkpoint(self.checkpoint_dir, self.state, epoch, self._best_loss,
-                                    name="latest", generator=self.generator)
-                if self._stop_requested:
-                    print(f"preempted: saved 'latest' after epoch {epoch}; "
-                          f"resume with --resume")
+                                    mesh=self.mesh)
+                stop = self._stop_agreed()
+                if epoch % self.ckpt_interval == 0 or last_epoch or stop:
+                    save_checkpoint(self.checkpoint_dir, self.state, epoch, self._best_loss,
+                                    name="latest", generator=self.generator,
+                                    mesh=self.mesh)
+                if stop:
+                    self._log(f"preempted: saved 'latest' after epoch {epoch}; "
+                              f"resume with --resume")
                     break
         finally:
             if prev_handler is not _no_handler:
@@ -353,7 +414,8 @@ class Problem:
         perf = {k: v[-1] for k, v in self._logger_dict.items()
                 if k.startswith("Perf_measure") and v}
         self.writer.hparams(dataclasses.asdict(self.cfg), perf)
-        with open(self.log_dir / "results.pkl", "wb") as f:
-            pickle.dump(dict(self._logger_dict), f)
+        if self.chief:
+            with open(self.log_dir / "results.pkl", "wb") as f:
+                pickle.dump(dict(self._logger_dict), f)
         self.writer.close()
         return dict(self._logger_dict)

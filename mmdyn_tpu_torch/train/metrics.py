@@ -34,6 +34,16 @@ def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,
     return grid
 
 
+class NullWriter:
+    """``MetricWriter``'s interface, logging nothing: the writer of a rank
+    other than 0."""
+
+    tensorboard = False
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 class MetricWriter:
     """Scalars and text to ``metrics.jsonl``; scalars, images, figures and
     hparams to TensorBoard when it is on and imports."""

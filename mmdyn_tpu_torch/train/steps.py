@@ -8,6 +8,21 @@ eagerly; the model and optimizer live in the ``TrainState`` and update in
 place. With ``cfg.remat`` the train step keeps no activations of the loss
 forward and recomputes them in the backward, as the JAX step's
 ``jax.checkpoint`` of the whole loss does (``mmdyn_tpu/train/steps.py:37-40``).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank passes its row
+block of the global batch; the loss forward runs inside
+``parallel.sharded(mesh)``, so BatchNorm statistics, noise, dropout and the
+loss's normalisation are the global batch's. The gradients are then summed
+across ranks by one flat all-reduce after the backward, before the optimizer
+step, and the metrics are reduced to the global batch's in one more. That,
+not ``DistributedDataParallel``, because DDP reduces only what flows from
+its wrapper's ``forward``: the MVAE's loss calls the model's encoders and
+decoders directly (``problems/reconstruction.py``), and under ``remat`` the
+forward runs again inside the backward. A single all-reduce after the
+backward holds for any loss and for remat alike; what it gives up is DDP's
+overlap of the reduction with the backward. At one rank every collective
+still runs (an all-reduce over one rank is exact), so a one-rank group
+trains bit for bit as no group does.
 """
 
 from __future__ import annotations
@@ -15,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from mmdyn_tpu_torch.parallel.mesh import all_reduce_grads, reduce_metrics, sharded
 from mmdyn_tpu_torch.problems.base import ProblemConfig
 from mmdyn_tpu_torch.problems.specs import evaluate, parse_batch
 from mmdyn_tpu_torch.problems.transforms import augment_batch
@@ -38,24 +54,29 @@ def _loss_fn(model, cfg, batch, generator, kl_weight, train=False):
     return evaluate(cfg, model, generator, inputs, targets, kl_weight)
 
 
-def _loss_and_backward(model, cfg, batch, generator, kl_weight):
-    """The train loss forward and its backward; under ``cfg.remat`` the
-    forward runs in a checkpoint region, recomputed in the backward.
+def _loss_and_backward(model, cfg, batch, generator, kl_weight, mesh=None):
+    """The train loss forward (inside ``sharded(mesh)``) and its backward;
+    under ``cfg.remat`` the forward runs in a checkpoint region, recomputed
+    in the backward.
 
     The checkpoint restores only the global generators, not the explicit
     one every draw comes from. So the region starts by setting the
     generator's state to its state on entry: the recompute redraws the
     forward's dropout masks and noise. After the backward the generator is
-    set to where the forward left it, as it would be without remat."""
+    set to where the forward left it, as it would be without remat. The
+    region also enters ``sharded(mesh)`` itself: on the card the recompute
+    runs on autograd's device thread, outside the caller's context."""
     if not cfg.remat:
-        loss, aux = _loss_fn(model, cfg, batch, generator, kl_weight, True)
+        with sharded(mesh):
+            loss, aux = _loss_fn(model, cfg, batch, generator, kl_weight, True)
         loss.backward()
         return loss, aux
     start = generator.get_state()
 
     def run():
         generator.set_state(start)
-        return _loss_fn(model, cfg, batch, generator, kl_weight, True)
+        with sharded(mesh):
+            return _loss_fn(model, cfg, batch, generator, kl_weight, True)
 
     loss, aux = checkpoint(run, use_reentrant=False, preserve_rng_state=False)
     after = generator.get_state()
@@ -64,7 +85,11 @@ def _loss_and_backward(model, cfg, batch, generator, kl_weight):
     return loss, aux
 
 
-def make_train_step(cfg: ProblemConfig, device=None):
+def _global_metrics(metrics, mesh):
+    return metrics if mesh is None else reduce_metrics(mesh, metrics)
+
+
+def make_train_step(cfg: ProblemConfig, device=None, mesh=None):
     """Returns (state, batch, generator, kl_weight) -> (state, metrics).
 
     ``generator`` is a ``torch.Generator`` on the device (dropout and
@@ -72,36 +97,42 @@ def make_train_step(cfg: ProblemConfig, device=None):
     annealing weight, problems.py:212-216). A float is used as it is: making
     a device tensor of it would copy from the host and wait for the device
     every step. Metrics are detached device tensors; reading them is the
-    caller's sync.
+    caller's sync. With ``mesh`` the batch is this rank's row block, the
+    device ``mesh.device``, and the metrics are the global batch's.
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
 
     def train_step(state, batch, generator, kl_weight):
         batch = _to_device(batch, device)
         if torch.is_tensor(kl_weight):
             kl_weight = kl_weight.to(device=device, dtype=torch.float32)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = _loss_and_backward(state.model, cfg, batch, generator, kl_weight)
+        loss, aux = _loss_and_backward(state.model, cfg, batch, generator, kl_weight,
+                                       mesh)
+        if mesh is not None:
+            all_reduce_grads(mesh, state.model.parameters())
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), **aux["perf_measure"]}
+        return state, _global_metrics({"loss": loss.detach(), **aux["perf_measure"]}, mesh)
 
     return train_step
 
 
-def make_eval_step(cfg: ProblemConfig, device=None):
+def make_eval_step(cfg: ProblemConfig, device=None, mesh=None):
     """Returns (model, batch, generator, kl_weight) -> (metrics, aux).
 
     Mirrors _test_epoch (problems.py:173-191): batch-statistics BatchNorm and
-    active dropout, as in training, but no gradients.
+    active dropout, as in training, but no gradients. With ``mesh`` as in
+    ``make_train_step``; ``aux`` holds this rank's rows.
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
 
     @torch.no_grad()
     def eval_step(model, batch, generator, kl_weight):
         batch = _to_device(batch, device)
-        loss, aux = _loss_fn(model, cfg, batch, generator, kl_weight)
-        return {"loss": loss, **aux["perf_measure"]}, aux
+        with sharded(mesh):
+            loss, aux = _loss_fn(model, cfg, batch, generator, kl_weight)
+        return _global_metrics({"loss": loss, **aux["perf_measure"]}, mesh), aux
 
     return eval_step
 

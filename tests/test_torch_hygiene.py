@@ -77,6 +77,7 @@ assert not bad, bad
     ("tools.bench_http", ("--wait-ms", "--calibrate-frames")),
     ("tools.rerender_dataset", ("--suffix", "--thickness")),
     ("tools.bullet_diff", ("--engines", "--skip-run")),
+    ("tools.multihost_smoke", ("--spawn", "--timeout")),
 ])
 def test_cli_help_loads_no_jax(cli, flags):
     """``python -m mmdyn_tpu_torch.cli.<cli> --help`` (and

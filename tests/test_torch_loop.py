@@ -183,11 +183,15 @@ def test_cli_conditional_mvae_bf16_and_evaluate(tmp_path):
 
 
 def test_cli_devices(ds, tmp_path, monkeypatch):
-    """Without ``--platform cpu`` the CLI wants the card; several cards are
-    not ported yet."""
+    """Without ``--platform cpu`` the CLI wants the card; ``--num-devices``
+    beyond the visible cards is an error naming both counts, before any
+    process starts (no fallback to fewer)."""
     argv = ["--dataset-path", str(ds), "--logs-root", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="several cards"):
-        cli_main.main(argv + ["--num-devices", "2", "--platform", "cpu"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--num-devices 2 asks for 2 CUDA devices, "
+                                           "but 1 is visible"):
+        cli_main.main(argv + ["--num-devices", "2"])
+    assert not list(tmp_path.iterdir())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main.main(argv)
