@@ -183,9 +183,24 @@ Phases, any failure raises and exits non-zero:
        each rank, and one more step with every all-reduce timed between
        synchronisations (gloo's share of the step). (l3) in the same two
        ranks, ``InferenceSession(mesh=)`` predicts the 64-row serving batch
-       within atol 1e-5 of one process. (l4) ``cli.main --num-devices``
-       one more than the visible cards exits non-zero, naming both counts.
-       Two ranks on one card are no evidence of scaling.
+       within atol 1e-5 of one process. (l2)'s runs draw their dropout masks
+       and noise from one pinned CPU generator (``pinned_draws``). (l4)
+       ``cli.main --num-devices`` one more than the visible cards exits
+       non-zero, naming both counts. (l5) serving across ranks: (f)'s run
+       served over HTTP at batch 64 by one process, then by two gloo ranks
+       sharing ``cuda:0`` (rank 0 serves and posts to itself, rank 1
+       follows): /predict at 1 and 64 rows, /predict?sample=1, /rollout of 8
+       rows, /sample, each reply within 1 uint8 level and atol 1e-5 of one
+       process's (/sample equal), and the /predict round trip of both at 1
+       and 64 rows. (l6) in the same ranks, ``export_session`` at batch 8:
+       rank 0's one-device artifact equals the one-process card artifact's
+       outputs bit for bit; ``aot_predict`` on the card group refuses. (l7)
+       ``multihost_smoke --spawn 2`` on the card (losses within 1e-5 of its
+       golden run) while the first step of (l2)'s reference runs in float64
+       on the host CPU: each float32 run's first-step gradients (one
+       process, (l2)'s rank 0, the floor) at their relative L2 distance to
+       it, over all tensors and per tensor. Two ranks on one card are no
+       evidence of scaling.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -199,6 +214,7 @@ import io
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -544,6 +560,70 @@ def pinned_vae_noise():
         yield
     finally:
         vae.reparametrize = real
+
+
+@contextlib.contextmanager
+def pinned_draws(seed=11):
+    """Inside the block the MVAE train step's random numbers (the dropout
+    masks of ``models/layers.py`` and the subsets' noise of
+    ``problems/reconstruction.py``, both drawn through
+    ``parallel.mesh.global_draw``) come from one CPU generator seeded once,
+    in float32, at the global shape with this rank's rows kept, then moved
+    to the step's device and dtype: the same numbers on the card and on the
+    CPU, in float32 and in float64, in one process and in every rank. The
+    uniforms are odd multiples of 2^-17, so a dropout mask (``u < 0.9``)
+    compares alike in float32 and float64."""
+    from mmdyn_tpu_torch.models import layers
+    from mmdyn_tpu_torch.parallel.mesh import active_mesh
+    from mmdyn_tpu_torch.problems import reconstruction
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def pinned(real, sample):
+        def global_draw(draw, shape, dim=0):
+            like = real(draw, shape, dim)          # this rank's block, as placed
+            mesh = active_mesh()
+            rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+            n = like.shape[dim]
+            full = like.shape[:dim] + (n * size,) + like.shape[dim + 1:]
+            return sample(full).narrow(dim, rank * n, n).to(like.device, like.dtype)
+        return global_draw
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=gen, dtype=torch.float32)
+        return (torch.floor(u * 2**16) + 0.5) / 2**16
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32)
+
+    saved = layers.global_draw, reconstruction.global_draw
+    layers.global_draw = pinned(saved[0], uniform)
+    reconstruction.global_draw = pinned(saved[1], normal)
+    try:
+        yield
+    finally:
+        layers.global_draw, reconstruction.global_draw = saved
+
+
+@contextlib.contextmanager
+def relu_signs(model, signs):
+    """Inside the block each ``nn.ReLU`` of ``model`` (the pose encoder's and
+    decoder's MLPs; the image paths use swish) records into ``signs[name]``
+    its first input's ``x > 0`` on the CPU: the side of the kink each
+    element took, which (l7) compares across runs."""
+    def hook(name):
+        def record(module, args, out):
+            if name not in signs:
+                signs[name] = (args[0] > 0).cpu()
+        return record
+
+    handles = [m.register_forward_hook(hook(name)) for name, m in model.named_modules()
+               if isinstance(m, torch.nn.ReLU)]
+    try:
+        yield signs
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def check_card_vs_cpu(kernels, cfg, b, seq_len=2, shock=0, launches=(0, 0), steps=2,
@@ -2265,15 +2345,16 @@ def _ddp_rank(path):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters(kernels)
     before = mesh.collectives
-    losses, step_s, grads = [], [], None
-    for _ in range(DDP_STEPS):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, gen, 1.0)
-        losses.append(float(metrics["loss"]))       # the read syncs
-        step_s.append(time.perf_counter() - t0)
-        if grads is None:
-            grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    losses, step_s, grads, signs = [], [], None, {}
+    with pinned_draws(), relu_signs(model, signs):
+        for _ in range(DDP_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen, 1.0)
+            losses.append(float(metrics["loss"]))       # the read syncs
+            step_s.append(time.perf_counter() - t0)
+            if grads is None:
+                grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     launches = read_counters(kernels)
     per_step = (mesh.collectives - before) / DDP_STEPS
     params = {n: p.detach().cpu() for n, p in model.named_parameters()}
@@ -2283,6 +2364,8 @@ def _ddp_rank(path):
         "params_sum": float(sum(p.double().sum() for p in params.values())),
         "step_ms": [t * 1e3 for t in step_s],
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "_grads": grads if mesh.is_chief else None,    # for (l7)'s float64 probe
+        "_signs": signs,
     }
     out["instrumented_step_ms"], out["allreduce_ms"] = _collective_ms(step, state, batch,
                                                                       gen, dev)
@@ -2297,7 +2380,8 @@ def _ddp_rank(path):
 def ddp_two_ranks(card, flag, tmp):
     """(l2) and (l3): the one-process reference on the card (the seq flagship
     at full width, batch 512, 4 steps from one state, cuDNN's deterministic
-    algorithms; predict at batch 64), then two gloo ranks sharing ``cuda:0``
+    algorithms, the draws pinned by ``pinned_draws``; predict at batch 64),
+    then two gloo ranks sharing ``cuda:0``
     (``_ddp_rank``) held against it: every step's loss within rel 1e-4, the
     first step's gradients within 1e-4 in relative L2 norm (a gradient
     summed wrong, which Adam's scale-free update would hide, shows here),
@@ -2316,7 +2400,8 @@ def ddp_two_ranks(card, flag, tmp):
 
     def one_process(init=None):
         """4 steps of one process on the global batch: (the first state's
-        weights, losses, first-step gradients, parameters)."""
+        weights, losses, first-step gradients, parameters, the first step's
+        ReLU signs)."""
         state, step = train_state(flag, None)
         if init is not None:
             state.model.load_state_dict(init)
@@ -2324,25 +2409,35 @@ def ddp_two_ranks(card, flag, tmp):
         first = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
         gen = torch.Generator(device=dev).manual_seed(0)
-        losses, grads = [], None
-        for _ in range(DDP_STEPS):
-            state, metrics = step(state, batch, gen, 1.0)
-            losses.append(float(metrics["loss"]))
-            if grads is None:
-                grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+        losses, grads, signs = [], None, {}
+        with pinned_draws(), relu_signs(state.model, signs):
+            for _ in range(DDP_STEPS):
+                state, metrics = step(state, batch, gen, 1.0)
+                losses.append(float(metrics["loss"]))
+                if grads is None:
+                    grads = {n: p.grad.detach().cpu()
+                             for n, p in state.model.named_parameters()}
         params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
-        return first, losses, grads, params
+        return first, losses, grads, params, signs
 
-    init, losses, grads, params = one_process()
+    init, losses, grads, params, signs = one_process()
     ref = {"losses": losses, "grads": grads, "params": params}
     # the floor: the same run with cuDNN's default algorithms, which sum in
     # other orders (as (f)'s rerun shows, they also differ run to run)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = False
     try:
-        control = ddp_gaps(*one_process(init)[1:], ref)
+        floor = one_process(init)[1:]
+        control = ddp_gaps(*floor[:3], ref)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    # for (l7): one process without cuDNN (PyTorch's own convolutions), which
+    # sums in still other orders
+    torch.backends.cudnn.enabled = False
+    try:
+        no_cudnn = one_process(init)[1:]
+    finally:
+        torch.backends.cudnn.enabled = True
     x = serving_inputs(64)
     serve = {k: v.cpu() for k, v in InferenceSession(flag, init).predict(**x).items()}
     torch.cuda.empty_cache()
@@ -2352,6 +2447,16 @@ def ddp_two_ranks(card, flag, tmp):
     t0 = time.perf_counter()
     ranks = spawn(_ddp_rank, 2, (str(path),), backend="gloo", timeout=DDP_TIMEOUT)
     wall_s = time.perf_counter() - t0
+    # the first step's gradients and ReLU signs of the four float32 runs, for (l7)
+    probe = tmp / "float64_probe.pt"
+    rank_signs = [r.pop("_signs") for r in ranks]     # the rows' axis is -2
+    torch.save({"cfg": flag, "init": init, "batch": batch_np, "grads": {
+        "one_process": grads, "two_ranks": ranks[0].pop("_grads"), "floor": floor[1],
+        "no_cudnn": no_cudnn[1]},
+        "signs": {"one_process": signs, "floor": floor[3], "no_cudnn": no_cudnn[3],
+                  "two_ranks": {
+            n: torch.cat([r[n] for r in rank_signs], dim=-2) for n in signs}}}, probe)
+    ranks[1].pop("_grads")
     say(f"[5/6] (l2) the floor: one process with cuDNN's default algorithms against the "
         f"reference (deterministic ones): {json.dumps(control)}")
     for r in ranks:
@@ -2384,7 +2489,7 @@ def ddp_two_ranks(card, flag, tmp):
     for r in ranks:
         r["gloo_share"] = r["allreduce_ms"] / r["instrumented_step_ms"]
     return {"ranks": ranks, "floor": control, "wall_s": wall_s,
-            "launches": ranks[0]["launches"]}
+            "launches": ranks[0]["launches"], "_probe": probe}
 
 
 def ddp_refusal(card):
@@ -2407,14 +2512,329 @@ def ddp_refusal(card):
     return {"exit": out.returncode, "message": want}
 
 
+SERVE_BATCH, EXPORT_BATCH = 64, 8        # (l5)'s server, (l6)'s artifact
+SMOKE_TIMEOUT, PROBE_TIMEOUT = 300, 900
+
+
+def serve_requests(x):
+    """(l5)'s requests, in order: (name, path, npz body); uint8 images, as
+    (g)'s clients send them."""
+    def wire(b):
+        return {"visual": (x["visual"][:b] * 255).astype(np.uint8),
+                "tactile": (x["tactile"][:b] * 255).astype(np.uint8), "pose": x["pose"][:b]}
+
+    return [("predict_1", "/predict", wire(1)), ("predict_64", "/predict", wire(64)),
+            ("predict_sample", "/predict?sample=1", wire(64)),
+            ("rollout", "/rollout?steps=4", wire(8)), ("prior", "/sample?n=8&seed=3", None)]
+
+
+def serve_and_time(server, requests):
+    """The replies to ``requests`` from ``server`` (serving from a thread,
+    closed after), then the /predict round trip at 1 and 64 rows (median of
+    10 after 2, host ms)."""
+    with running(server) as port:
+        replies = {name: dict(http_post(port, path, body)[1]) for name, path, body in requests}
+        bodies = {name: body for name, _, body in requests}
+        round_trip = {b: float(np.median([http_post(port, "/predict", bodies[f"predict_{b}"])[0]
+                                          for _ in range(12)][2:])) for b in (1, 64)}
+    return replies, round_trip
+
+
+def _serve_rank(run, tmp):
+    """(l5) and (l6) in one of two ranks sharing ``cuda:0``, joined by gloo:
+    rank 0 serves (f)'s run over HTTP at batch 64 and posts
+    ``serve_requests`` to itself while rank 1 follows; then both export at
+    batch 8 (rank 0 writes a one-device artifact) and ask for the graph
+    predictor, which must refuse."""
+    from mmdyn_tpu_torch.ops import kernels
+    from mmdyn_tpu_torch.parallel import make_mesh
+    from mmdyn_tpu_torch.serve import InferenceSession, export_session
+    from mmdyn_tpu_torch.serve.server import follow, make_server
+    from mmdyn_tpu_torch.utils.device import set_reference_precision
+
+    set_reference_precision()
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:0"], backend="gloo", timeout=DDP_TIMEOUT)
+    session = InferenceSession.from_run(run, mesh=mesh)
+    reset_counters(kernels)
+    out = {"rank": mesh.rank}
+    if mesh.is_chief:
+        server = make_server(session, port=0, batch_size=SERVE_BATCH)
+        out["replies"], out["round_trip_ms"] = serve_and_time(
+            server, serve_requests(serving_inputs(SERVE_BATCH)))
+    else:
+        out["calls"] = follow(session)
+    t0 = time.perf_counter()
+    out["manifest"] = export_session(session, Path(tmp, "l6_ranks"), batch_size=EXPORT_BATCH)
+    out["export_s"] = time.perf_counter() - t0
+    try:
+        session.aot_predict(EXPORT_BATCH, tuple(out["manifest"]["modalities"]))
+        out["aot_error"] = None
+    except RuntimeError as e:
+        out["aot_error"] = str(e)
+    out["launches"] = read_counters(kernels)
+    return out
+
+
+def reply_gaps(got, want):
+    """Per reply: the largest uint8 gap in levels and float gap."""
+    gaps = {}
+    for name, w in want.items():
+        g = got[name]
+        if set(g) != set(w) or any(g[k].shape != w[k].shape for k in w):
+            raise AssertionError(f"(l5) {name}: {sorted(g)} vs {sorted(w)}")
+        gaps[name] = {k: (int(np.abs(g[k].astype(np.int16) - w[k].astype(np.int16)).max())
+                          if w[k].dtype == np.uint8 else float(np.abs(g[k] - w[k]).max()))
+                      for k in w}
+    return gaps
+
+
+def rollout_gaps(got, want):
+    """A rollout reply's largest float gap at each step, and over the whole
+    trajectory its largest gap over the largest |value|."""
+    keys = [k for k, w in want.items() if w.dtype != np.uint8]
+    steps = [max(float(np.abs(got[k][t] - want[k][t]).max()) for k in keys)
+             for t in range(len(want[keys[0]]))]
+    return steps, max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                      for k in keys)
+
+
+def ddp_serving(kernels, card, tmp):
+    """(l5) and (l6): (f)'s run served by one process on the card and then
+    by two gloo ranks sharing ``cuda:0`` (``_serve_rank``), the same
+    requests in the same order from a fresh session: uint8 images within 1
+    level, mu / logvar / pose within atol 1e-5, /sample equal. The 4-step
+    rollout feeds each step's images back, which amplifies the BatchNorm
+    sums' other order: its first step (a predict) is held at atol 1e-5, the
+    trajectory at (g)'s card-vs-CPU bound, 1e-4 of its largest value. The /predict
+    round trip of both at 1 and 64 rows (a cost, no claim). The two-rank
+    artifact at batch 8 equals the one-process card artifact bit for bit on
+    the same inputs, and the graph predictor of the card group refuses,
+    naming predict. No kernel of the port launches."""
+    from mmdyn_tpu_torch.serve import InferenceSession, export_session, load_exported
+    from mmdyn_tpu_torch.serve.server import make_server
+    from mmdyn_tpu_torch.parallel import spawn
+
+    run = tmp / "run"
+    torch.cuda.empty_cache()
+    reset_counters(kernels)
+    one = InferenceSession.from_run(run)
+    want, one_ms = serve_and_time(make_server(one, port=0, batch_size=SERVE_BATCH),
+                                  serve_requests(serving_inputs(SERVE_BATCH)))
+    export_session(one, tmp / "l6_one", batch_size=EXPORT_BATCH)
+    launches = read_counters(kernels)
+    del one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rank0, rank1 = spawn(_serve_rank, 2, (str(run), str(tmp)), backend="gloo",
+                         timeout=DDP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    gaps = reply_gaps(rank0["replies"], want)
+    worst_u8 = max(v for g in gaps.values() for k, v in g.items() if isinstance(v, int))
+    worst_f = max(v for name, g in gaps.items() if name not in ("prior", "rollout")
+                  for v in g.values() if isinstance(v, float))
+    roll_steps, roll_rel = rollout_gaps(rank0["replies"]["rollout"], want["rollout"])
+    prior_equal = all(np.array_equal(rank0["replies"]["prior"][k], v)
+                      for k, v in want["prior"].items())
+    say(f"[5/6] (l5) HTTP server of two gloo ranks on cuda:0 ({card}), batch {SERVE_BATCH}: "
+        f"/predict at 1 and 64 rows, /predict?sample=1, /rollout?steps=4 (8 rows), "
+        f"/sample?n=8 against one process's server: worst uint8 gap {worst_u8} levels, "
+        f"worst float gap of the predicts {worst_f!r} (atol 1e-5), /sample equal: "
+        f"{prior_equal}; the rollout's float gap by step {roll_steps} (the first atol "
+        f"1e-5), over its largest value {roll_rel!r} (1e-4); "
+        f"by reply {json.dumps(gaps)}; rank 1 made {rank1['calls']} calls (2 warm-up, 4 "
+        f"requests, 24 timed)")
+    say(f"[5/6] (l5) /predict round trip (uint8 npz, median of 10) on {card}: two ranks "
+        f"{rank0['round_trip_ms'][1]:.3f} ms at 1 row, {rank0['round_trip_ms'][64]:.3f} ms at "
+        f"64; one process {one_ms[1]:.3f} / {one_ms[64]:.3f} ms (a cost, no claim)")
+    x = serving_inputs(EXPORT_BATCH, seed=9)
+    a, b = load_exported(tmp / "l6_one")(**x), load_exported(tmp / "l6_ranks")(**x)
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    say(f"[5/6] (l6) export_session of the two-rank session at batch {EXPORT_BATCH} on "
+        f"{card}: rank 0 wrote a {rank0['manifest']['platforms']} artifact in "
+        f"{rank0['export_s']:.2f} s, both ranks returned its manifest; its outputs "
+        f"{sorted(a)} equal the one-process card artifact's bit for bit: {not differ}; "
+        f"aot_predict on the card group raised: {rank0['aot_error']!r}")
+    say(f"[5/6] (l5)+(l6): two spawned ranks took {wall_s:.1f} s, start-up included; "
+        f"launches: one process {launches}, ranks {rank0['launches']}, {rank1['launches']}")
+    if (worst_u8 > 1 or worst_f > 1e-5 or roll_steps[0] > 1e-5 or roll_rel > 1e-4
+            or not prior_equal or differ
+            or rank0["manifest"] != rank1["manifest"] or rank1["calls"] != 2 + 4 + 2 * 12
+            or rank0["manifest"]["batch_size"] != EXPORT_BATCH
+            or any(r["aot_error"] is None or "call predict" not in r["aot_error"]
+                   for r in (rank0, rank1))
+            or any(any(v.values()) for v in (launches, rank0["launches"], rank1["launches"]))):
+        raise AssertionError(f"(l5)/(l6): gaps {gaps}, prior equal {prior_equal}, artifact "
+                             f"differs in {differ}, rank 1 calls {rank1['calls']}, aot "
+                             f"{rank0['aot_error']!r}, launches {launches}, "
+                             f"{rank0['launches']}, {rank1['launches']}")
+    return {"gaps": gaps, "rollout_by_step": roll_steps, "rollout_rel": roll_rel,
+            "round_trip_ms": {"two_ranks": rank0["round_trip_ms"],
+                                            "one_process": one_ms},
+            "export_s": rank0["export_s"], "aot_error": rank0["aot_error"], "wall_s": wall_s}
+
+
+def _rel_l2(got, want, names):
+    num = sum(float(((got[n].double() - want[n]) ** 2).sum()) for n in names)
+    return math.sqrt(num / sum(float((want[n] ** 2).sum()) for n in names))
+
+
+class _KinkedRelu(torch.autograd.Function):
+    """ReLU whose backward takes ``given[name]`` as its derivative's mask
+    when it is set, else ``x > 0``."""
+
+    @staticmethod
+    def forward(ctx, x, name, given):
+        ctx.save_for_backward(x)
+        ctx.name, ctx.given = name, given
+        return torch.clamp_min(x, 0.0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        mask = ctx.given.get(ctx.name)
+        return grad * (x > 0 if mask is None else mask), None, None
+
+
+def _float64_probe(path):
+    """(l7), in a child process on the host CPU: the first step of (l2)'s
+    reference (same weights, batch and pinned draws) in float64, and each
+    float32 run's first-step gradients' relative L2 distance to it, over all
+    tensors and per tensor. ``Tensor.float()`` keeps a float64 tensor and
+    the subset mask is made float64, so no part of the step rounds to
+    float32; on the CPU the kernels' plain versions run.
+
+    ReLU is not differentiable at 0: an element whose input rounds to the
+    other side of 0 in a float32 run passes (or stops) its whole gradient.
+    So the ReLU inputs' signs of each float32 run are compared with
+    float64's (the flips), and the backward is taken a second time, from the
+    same forward, with the two-rank run's signs as the ReLU derivative: the
+    float64 gradient of the function that run took."""
+    torch.set_default_dtype(torch.float64)
+    to_float = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else to_float(t, *a, **k)
+    from mmdyn_tpu_torch.models import model_kwargs, setup_model
+    from mmdyn_tpu_torch.problems import reconstruction
+    from mmdyn_tpu_torch.train.steps import _loss_fn
+
+    tables = reconstruction._tables
+    reconstruction._tables = lambda use_pose, device: (
+        (tables(use_pose, device)[0].double(),) + tables(use_pose, device)[1:])
+    ref = torch.load(path, weights_only=False)
+    cfg = ref["cfg"]
+    model = setup_model(cfg.model_name, cross_modal=cfg.cross_modal, device="cpu",
+                        **model_kwargs(cfg)).double()
+    model.load_state_dict(ref["init"])
+    given, own = {}, {}
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.ReLU):
+            m.forward = lambda x, name=name: _KinkedRelu.apply(x, name, given)
+    batch = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in ref["batch"].items()}
+    params = dict(model.named_parameters())
+    t0 = time.perf_counter()
+    with pinned_draws(), relu_signs(model, own):
+        loss, _ = _loss_fn(model, cfg, batch, torch.Generator().manual_seed(0), 1.0, True)
+    want = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                retain_graph=True)))
+    given.update(ref["signs"]["two_ranks"])
+    kinked = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    seconds = time.perf_counter() - t0
+    names = sorted(want)
+    return {"seconds": seconds, "loss": float(loss.detach()), "rows": cfg.batchsize,
+            "latent": cfg.latent_size,
+            "all": {run: _rel_l2(g, want, names) for run, g in ref["grads"].items()},
+            "by_tensor": {n: {run: _rel_l2(g, want, [n]) for run, g in ref["grads"].items()}
+                          for n in names},
+            "flips": {run: sum(int((s[n] != own[n]).sum()) for n in own)
+                      for run, s in ref["signs"].items()},
+            "relu_elements": sum(v.numel() for v in own.values()),
+            "two_ranks_to_its_kinks": _rel_l2(ref["grads"]["two_ranks"], kinked, names),
+            "kinks_to_float64": _rel_l2(kinked, want, names)}
+
+
+def ddp_float64(card, probe, tmp):
+    """(l7): ``multihost_smoke --spawn 2`` on the card in a subprocess
+    (its 1e-5 gate) while the float64 probe (``_float64_probe``, one spawned
+    process) runs on the host CPU."""
+    with open(tmp / "smoke.out", "w") as out, open(tmp / "smoke.err", "w") as err:
+        # its own process group: a failure here stops the ranks it spawns too
+        smoke = subprocess.Popen(
+            [sys.executable, "-m", "mmdyn_tpu_torch.tools.multihost_smoke", "--spawn", "2",
+             "--timeout", str(SMOKE_TIMEOUT)], cwd=REPO, stdout=out, stderr=err,
+            start_new_session=True)
+    try:
+        return _float64_and_smoke(card, probe, smoke, tmp)
+    finally:
+        if smoke.poll() is None:
+            os.killpg(smoke.pid, signal.SIGKILL)
+            smoke.wait()
+
+
+def _float64_and_smoke(card, probe, smoke, tmp):
+    from mmdyn_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    (report,) = spawn(_float64_probe, 1, (str(probe),), timeout=PROBE_TIMEOUT)
+    probe_s = time.perf_counter() - t0
+    runs = ("one_process", "two_ranks", "floor", "no_cudnn")
+    worst = sorted(report["by_tensor"], key=lambda n: -report["by_tensor"][n]["two_ranks"])[:5]
+    shown = worst + [n for n in ("pose_decoder.deconv_net.2.weight",) if n not in worst]
+    ratio = report["all"]["two_ranks"] / report["all"]["one_process"]
+    flips = report["flips"]
+    say(f"[5/6] (l7) float64 probe, ReLU kinks (the pose encoder's and decoder's "
+        f"{report['relu_elements']} ReLU inputs of the step): elements on the other side of "
+        f"0 from float64 in each float32 run " + ", ".join(f"{r} {flips[r]}" for r in runs)
+        + f"; the two-rank gradients' distance to the float64 backward taken with their "
+        f"ReLU signs {report['two_ranks_to_its_kinks']:.3e} (that backward's distance to "
+        f"float64's own {report['kinks_to_float64']:.3e})")
+    say(f"[5/6] (l7) float64 probe: the first step of (l2)'s reference (seq flagship, batch "
+        f"{report['rows']}, latent {report['latent']}, pinned draws) in float64 on the host CPU in "
+        f"{report['seconds']:.1f} s (loss {report['loss']!r}); first-step gradients' "
+        f"relative L2 distance to it: " + ", ".join(f"{r} {report['all'][r]:.3e}" for r in runs)
+        + f" (float32 on {card}: the one-process reference, rank 0 of (l2)'s two ranks, the "
+        f"one process under cuDNN's default algorithms, and without cuDNN); two ranks / one "
+        f"process "
+        f"{ratio:.2f}; by tensor (5 farthest for two ranks): " + "; ".join(
+            f"{n} " + " / ".join(f"{report['by_tensor'][n][r]:.3e}" for r in runs)
+            for n in shown))
+    smoke.wait(timeout=SMOKE_TIMEOUT)
+    lines = (tmp / "smoke.out").read_text().strip().splitlines()
+    result = json.loads(lines[-1]) if lines else {}
+    gaps = {k: v for k, v in result.items() if k.endswith("max_rel_gap")}
+    say(f"[5/6] (l7) multihost_smoke --spawn 2 on {card} (both ranks on cuda:0, gloo, full "
+        f"float32): exit {smoke.returncode}, ok {result.get('ok')}, max relative loss gaps "
+        f"to the golden run {gaps} (gate 1e-5)")
+    if smoke.returncode != 0 or not result.get("ok") or len(gaps) != 2:
+        raise AssertionError(f"(l7) multihost_smoke: exit {smoke.returncode}, {result}, "
+                             f"{(tmp / 'smoke.err').read_text()[-2000:]}")
+    # the two-rank gradients are as close to float64 as rounding puts one
+    # process's (within 2x) once the ReLU kinks match: a kink passes or
+    # stops a whole gradient, so a distance across one measures no rounding
+    if not (all(math.isfinite(v) for v in report["all"].values())
+            and report["two_ranks_to_its_kinks"] <= 2 * report["all"]["one_process"]):
+        raise AssertionError(f"(l7) float64 probe: {report['all']}, with the two-rank "
+                             f"kinks {report['two_ranks_to_its_kinks']!r}")
+    return {"float64": {"all": report["all"], "ratio": ratio, "seconds": report["seconds"],
+                        "flips": flips, "relu_elements": report["relu_elements"],
+                        "two_ranks_to_its_kinks": report["two_ranks_to_its_kinks"],
+                        "kinks_to_float64": report["kinks_to_float64"],
+                        "wall_s": probe_s, "by_tensor": {n: report["by_tensor"][n]
+                                                         for n in shown}},
+            "multihost_smoke": {"exit": smoke.returncode, "gaps": gaps}}
+
+
 def ddp_path(kernels, card, flag, bare_step_ms, det_params, tmp):
     """(l), in (f)'s temporary directory: (l1) one rank bit for bit and its
-    bare step, (l2) and (l3) two gloo ranks on one card, (l4) the refusal."""
+    bare step, (l2) and (l3) two gloo ranks on one card, (l4) the refusal,
+    (l5) and (l6) serving and export across two ranks, (l7) multihost_smoke
+    and the float64 probe of (l2)'s gradients."""
     t0 = time.perf_counter()
     out = {"cli_one_rank": ddp_cli_one_rank(kernels, card, tmp, det_params),
            "bare_one_rank": ddp_bare_step(kernels, card, flag, bare_step_ms)}
     out.update(ddp_two_ranks(card, flag, tmp))
+    probe = out.pop("_probe")
     out["refusal"] = ddp_refusal(card)
+    out["serving"] = ddp_serving(kernels, card, tmp)
+    out.update(ddp_float64(card, probe, tmp))
     out["seconds"] = time.perf_counter() - t0
     say(f"[5/6] (l) took {out['seconds']:.1f} s")
     return out

@@ -22,7 +22,8 @@ and predicts each batch, computing its row block with BatchNorm statistics
 over the whole batch (``InferenceSession``'s ``mesh``); the batch is
 rounded up to a multiple of N (the tail padded as before), a rollout
 starts from its frame once per rank; rank 0 writes the outputs.
-``--export`` needs one rank.
+``--export`` under N ranks writes rank 0's one-device artifact
+(``serve/export.py``).
 """
 
 import argparse

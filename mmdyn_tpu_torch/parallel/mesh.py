@@ -41,7 +41,9 @@ import math
 import multiprocessing
 import os
 import pickle
+import signal
 import tempfile
+import threading
 import time
 import traceback
 from datetime import timedelta
@@ -363,7 +365,10 @@ def _rank_main(fn, args, rank, nprocs, backend, tmp, timeout):
         dist.destroy_process_group()
 
 
-def _wait(procs, deadline, tmp):
+SIGNAL_GRACE_S = 60.0   # the ranks' time to end after a signal passed on
+
+
+def _wait(procs, deadline, tmp, signalled):
     while True:
         codes = [p.exitcode for p in procs]
         failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
@@ -375,10 +380,39 @@ def _wait(procs, deadline, tmp):
                                f"\n{detail}")
         if all(c == 0 for c in codes):
             return
+        running = [r for r, c in enumerate(codes) if c is None]
         if deadline is not None and time.monotonic() > deadline:
-            raise TimeoutError(f"ranks {[r for r, c in enumerate(codes) if c is None]} "
-                               f"still running at the time limit")
+            raise TimeoutError(f"ranks {running} still running at the time limit")
+        if signalled and time.monotonic() > signalled[0] + SIGNAL_GRACE_S:
+            raise TimeoutError(f"ranks {running} still running {SIGNAL_GRACE_S:g} s "
+                               f"after signal {signalled[1]} was passed on")
         procs[codes.index(None)].join(0.05)
+
+
+@contextlib.contextmanager
+def _passing_signals(procs, signalled):
+    """Inside the block SIGINT and SIGTERM to this process go on to every
+    rank still running (which ends its work as it would end it alone: the
+    training loop's checkpointed stop, the server's shutdown), and
+    ``signalled`` records the first: (time, signal). Only the main thread
+    can set handlers; elsewhere nothing is passed on."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def pass_on(signum, frame):
+        if not signalled:
+            signalled.extend((time.monotonic(), signal.Signals(signum).name))
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signum)
+
+    previous = {sig: signal.signal(sig, pass_on) for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        yield
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
 
 
 def spawn(fn, nprocs: int, args=(), backend: str = "gloo", timeout: Optional[float] = None):
@@ -392,7 +426,10 @@ def spawn(fn, nprocs: int, args=(), backend: str = "gloo", timeout: Optional[flo
     function) and return a picklable value. The ranks share the host's
     cores: each takes its share of torch's threads. If a rank fails, the
     others are stopped and the failure's traceback raised; ``timeout``
-    (seconds) bounds the whole run and every collective."""
+    (seconds) bounds the whole run and every collective. A SIGINT or
+    SIGTERM to this process while the ranks run is passed on to them; ranks
+    that have not ended ``SIGNAL_GRACE_S`` seconds later are stopped, and a
+    ``TimeoutError`` raised."""
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="mmdyn_ranks_") as tmp:
         procs = [ctx.Process(target=_rank_main, name=f"rank{rank}",
@@ -401,8 +438,10 @@ def spawn(fn, nprocs: int, args=(), backend: str = "gloo", timeout: Optional[flo
         for p in procs:
             p.start()
         deadline = None if timeout is None else time.monotonic() + timeout
+        signalled = []
         try:
-            _wait(procs, deadline, tmp)
+            with _passing_signals(procs, signalled):
+                _wait(procs, deadline, tmp, signalled)
         finally:
             for p in procs:
                 if p.is_alive():

@@ -14,6 +14,11 @@ size into a self-contained directory:
 only torch and the serialized program. A ``sample`` artifact takes its
 noise as an input (the posterior's shape), never a generator. The program
 runs on the device type it was exported on (``manifest["platforms"]``).
+
+A session of a group of ranks exports a one-device program, as the JAX
+package lowers its meshed session with unsharded specs: rank 0 exports a
+session without a group from the same weights (and frozen statistics), the
+other ranks wait, and every rank returns the manifest.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mmdyn_tpu_torch.serve.session import IMAGE_SHAPE, POSE_DIM, posterior_rows
+from mmdyn_tpu_torch.parallel.mesh import broadcast_object
+from mmdyn_tpu_torch.serve.session import (IMAGE_SHAPE, POSE_DIM, InferenceSession,
+                                           posterior_rows)
 
 MANIFEST = "manifest.json"
 MODULE = "predict.pt2"
@@ -50,9 +57,30 @@ def export_session(session, out_dir, batch_size=1, modalities=None,
                    conditional=False, sample=False):
     """Serialize the session's predictor for a fixed batch size on the
     session's device. ``modalities=None`` derives the input set from the
-    session's config. Returns the manifest dict. A session of more than
-    one rank raises (``InferenceSession`` doc)."""
-    session._require_one_rank("export")
+    session's config. Returns the manifest dict. Every rank of a group calls
+    it (module doc); an error on rank 0 raises on every rank."""
+    args = (out_dir, batch_size, modalities, conditional, sample)
+    if not session.grouped:
+        return _export(session, *args)
+    manifest = error = None
+    if session.mesh.is_chief:
+        solo = InferenceSession(session.cfg, session.model.state_dict(),
+                                parity=session.parity, bn_stats=session.bn_stats,
+                                norms=session.norms, device=session.device)
+        try:
+            manifest = _export(solo, *args)
+        except Exception as e:      # reported to every rank: none waits on
+            error = e
+    manifest, failed = broadcast_object(      # the other ranks wait here
+        session.mesh, (manifest, None if error is None else f"{type(error).__name__}: {error}"))
+    if error is not None:
+        raise error
+    if failed is not None:
+        raise RuntimeError(f"the export on rank 0 failed: {failed}")
+    return manifest
+
+
+def _export(session, out_dir, batch_size, modalities, conditional, sample):
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     cfg = session.cfg

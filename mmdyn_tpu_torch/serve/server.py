@@ -27,6 +27,23 @@ single worker (one card, in-order execution), fixed shapes, zero deps.
 /sample?seed=S draws from a generator on the session's device seeded with S.
 The device work runs on one long-lived thread of the app, not on the
 request threads: torch builds cuDNN's execution plans once per thread.
+
+A session of a group of ranks (``InferenceSession(mesh=)``, more than one
+rank) serves as the JAX package's meshed session does, each rank computing
+its rows of every batch: rank 0 runs the server, and the other ranks run
+``follow``. From the device thread, each predict or rollout first sends
+rank 0's call to them as one header (the method, the padded inputs, the
+condition, ``sample``, ``uint8_images``, ``steps``) through
+``parallel.mesh.broadcast_object``, and every rank then makes the call
+together. A request is checked on rank 0 before its header goes out: a rank
+that raised between two collectives would leave the others waiting.
+/sample runs on rank 0 alone (``sample_prior`` has no collective). The
+serving batch must split evenly over the ranks; a rollout's rows are padded
+up to a multiple of the group size (the last row repeated) and truncated
+back. ``server_close`` sends the ``stop`` header that ends the loops, and
+a ``ping`` header goes out every ``KEEPALIVE_S`` seconds, so an idle
+server's ranks never wait for the next header as long as the group's
+timeout.
 """
 
 from __future__ import annotations
@@ -34,14 +51,20 @@ from __future__ import annotations
 import io
 import json
 import queue
+import sys
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
+
+from mmdyn_tpu_torch.parallel.mesh import broadcast_object
+
+KEEPALIVE_S = 10.0      # at most this long between two headers to the ranks
 
 
 def _npz_bytes(arrays: dict) -> bytes:
@@ -58,6 +81,43 @@ def _bucket(n: int) -> int:
     distinct client value.
     """
     return 1 << max(0, (n - 1).bit_length())
+
+
+def check_serving_batch(batch_size: int, ranks: int):
+    """A group serves a batch only when it splits evenly over the ranks."""
+    if batch_size % ranks:
+        raise ValueError(f"a serving batch of {batch_size} rows does not split over "
+                         f"{ranks} ranks: pass a multiple of {ranks}")
+
+
+def _call(session, header):
+    """The session call a header names (rank 0's and its followers')."""
+    kwargs = dict(header["inputs"], condition=header["condition"], sample=header["sample"],
+                  uint8_images=header["uint8_images"])
+    if header["method"] == "rollout":
+        return session.rollout(header["steps"], **kwargs)
+    return session.predict(**kwargs)
+
+
+def follow(session) -> int:
+    """The loop of ranks 1.. of a serving group while rank 0 serves
+    (module doc): receive each header, make the same session call and drop
+    its result, until the ``stop`` header. A call that raises is logged and
+    the loop goes on; the group's timeout (``make_mesh(timeout=)``) bounds
+    any wait. Returns the number of calls made."""
+    calls = 0
+    while True:
+        header = broadcast_object(session.mesh, None)
+        if header["method"] == "stop":
+            return calls
+        if header["method"] == "ping":
+            continue
+        calls += 1
+        try:
+            _call(session, header)
+        except Exception:   # rank 0 raised the same, or will time out
+            print(f"rank {session.mesh.rank}: {header['method']} failed", file=sys.stderr)
+            traceback.print_exc()
 
 
 class ServingApp:
@@ -77,6 +137,11 @@ class ServingApp:
         self.session = session
         self.batch_size = int(batch_size)
         self.cfg = session.cfg
+        self._mesh = session.mesh if session.grouped else None
+        if self._mesh is not None:
+            check_serving_batch(self.batch_size, self._mesh.size)
+        self._stopped = False       # the device thread sent ``stop``
+        self._closed = threading.Event()
         self.modalities = (["visual", "tactile"] if self.cfg.cross_modal
                            else [self.cfg.input_type])
         if self.cfg.use_pose:
@@ -103,6 +168,9 @@ class ServingApp:
         self._batches = 0
         self._batcher = (_MicroBatcher(self, microbatch_wait_ms / 1e3)
                          if microbatch_wait_ms > 0 else None)
+        if self._mesh is not None:
+            threading.Thread(target=self._keepalive, daemon=True,
+                             name="mmdyn-keepalive").start()
 
     # -- helpers ---------------------------------------------------------
     def health(self) -> dict:
@@ -119,6 +187,7 @@ class ServingApp:
             "batches_executed": self._batches,
             "microbatching": self._batcher is not None,
             "frozen_bn": self.session.bn_stats is not None,
+            "ranks": 1 if self._mesh is None else self._mesh.size,
             "config": dataclasses.asdict(self.cfg),
         }
 
@@ -164,6 +233,40 @@ class ServingApp:
             lambda: {k: v.cpu().numpy() for k, v in fn(*args, **kwargs).items()}
         ).result()
 
+    def _send(self, header):
+        """On the device thread: ``header`` to the other ranks of a group."""
+        if self._stopped:
+            raise RuntimeError("the serving group has stopped")
+        broadcast_object(self._mesh, header)
+        self._stopped = header["method"] == "stop"
+
+    def _collective(self, header):
+        """The call ``header`` names, made on the device thread by every rank
+        (module doc): read back to numpy as ``_on_device`` does."""
+        def job():
+            if self._mesh is not None:
+                self._send(header)
+            return {k: v.cpu().numpy() for k, v in _call(self.session, header).items()}
+
+        return self._device.submit(job).result()
+
+    def _keepalive(self):
+        while not self._closed.wait(KEEPALIVE_S):
+            with self._lock:
+                if not self._closed.is_set():
+                    self._device.submit(self._send, {"method": "ping"}).result()
+
+    def close(self):
+        """End the other ranks' ``follow`` loops (one ``stop`` header) and
+        the device thread; later calls do nothing."""
+        with self._lock:
+            if self._closed.is_set():
+                return
+            self._closed.set()
+            if self._mesh is not None:
+                self._device.submit(self._send, {"method": "stop"}).result()
+        self._device.shutdown()
+
     def _pad(self, arr: np.ndarray, to: int) -> np.ndarray:
         n = arr.shape[0]
         if n == to:
@@ -175,10 +278,10 @@ class ServingApp:
         inputs = {m: self._pad(a, self.batch_size) for m, a in inputs.items()}
         if cond is not None:
             cond = self._pad(cond, self.batch_size)
+        header = {"method": "predict", "inputs": inputs, "condition": cond,
+                  "sample": sample, "uint8_images": self.cfg.problem_type != "regression"}
         with self._lock:
-            out = self._on_device(
-                self.session.predict, **inputs, condition=cond, sample=sample,
-                uint8_images=self.cfg.problem_type != "regression")
+            out = self._collective(header)
             self._batches += 1
         return {k: v[:n] for k, v in out.items()}
 
@@ -189,6 +292,7 @@ class ServingApp:
         if n > self.batch_size:
             raise ValueError(f"batch {n} exceeds serving batch size "
                              f"{self.batch_size}")
+        self.session.check_inputs(**inputs, condition=cond)
         if self._batcher is not None:
             out = self._batcher.submit(inputs, cond, sample, n)
         else:
@@ -234,15 +338,20 @@ class ServingApp:
         if not 0 < steps <= 1000:
             # bound the loop (and the trajectory held on the device)
             raise ValueError("steps must be in (0, 1000]")
+        self.session.check_inputs(**inputs, condition=cond)
         # quantize the step count the same way as /sample: run the rollout
         # at the next bucket and truncate the trajectory
         run_steps = _bucket(int(steps))
+        if self._mesh is not None:      # every rank takes equal rows
+            rows = -(-n // self._mesh.size) * self._mesh.size
+            inputs = {m: self._pad(a, rows) for m, a in inputs.items()}
+            cond = None if cond is None else self._pad(cond, rows)
+        header = {"method": "rollout", "inputs": inputs, "condition": cond,
+                  "sample": sample, "uint8_images": True, "steps": run_steps}
         with self._lock:
-            traj = self._on_device(self.session.rollout, run_steps, **inputs,
-                                   condition=cond, sample=sample,
-                                   uint8_images=True)
+            traj = self._collective(header)
             self._requests += 1
-        return _npz_bytes({k: v[:steps] for k, v in traj.items()})
+        return _npz_bytes({k: v[:steps, :n] for k, v in traj.items()})
 
 
 class _MicroBatcher:
@@ -395,11 +504,20 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200, out, "application/x-npz")
 
 
+class _Server(ThreadingHTTPServer):
+    def server_close(self):
+        """Close the socket, then the app (a group's ``stop`` header)."""
+        super().server_close()
+        self.RequestHandlerClass.app.close()
+
+
 def make_server(session, host: str = "127.0.0.1", port: int = 8471,
                 batch_size: int = 64,
                 microbatch_wait_ms: float = 0.0) -> ThreadingHTTPServer:
-    """Build (but do not start) the HTTP server; .serve_forever() to run."""
+    """Build (but do not start) the HTTP server; .serve_forever() to run,
+    .server_close() to close. For a session of a group, on rank 0 while the
+    other ranks ``follow`` (module doc)."""
     app = ServingApp(session, batch_size=batch_size,
                      microbatch_wait_ms=microbatch_wait_ms)
     handler = type("Handler", (_Handler,), {"app": app})
-    return ThreadingHTTPServer((host, port), handler)
+    return _Server((host, port), handler)

@@ -35,9 +35,11 @@ multi-controller mode: every rank calls ``predict``, ``rollout`` or
 BatchNorm statistics and noise draws taken over the global batch, and every
 rank returns the whole result, gathered by an all-reduce of a zero-filled
 buffer (gloo has no all-gather of CUDA tensors). ``sample_prior`` runs whole
-on every rank. The CUDA-graph predictor and ``export`` raise under a group
-of more than one rank: a gloo collective cannot be captured in a CUDA
-graph (``ROADMAP.md``, queue 1 item 5).
+on the rank that calls it, with no collective. Under a group of more than
+one rank, ``aot_predict`` on the CPU returns the eager fixed-shape
+predictor, which every rank calls together as it calls ``predict``; on the
+card it raises (``aot_predict``). ``serve/export.py`` exports a one-device
+program from rank 0.
 """
 
 from __future__ import annotations
@@ -243,12 +245,10 @@ class InferenceSession:
         return {k: gather_rows(self.mesh, v.transpose(0, 1)).transpose(0, 1)
                 for k, v in traj.items()}
 
-    def _require_one_rank(self, what):
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(
-                f"{what} under a process group of {self.mesh.size} ranks is not ported "
-                f"(ROADMAP.md, queue 1 item 5): a gloo collective cannot be captured in a "
-                f"CUDA graph or an exported program; call predict")
+    @property
+    def grouped(self) -> bool:
+        """Whether the session is one rank of a group of more than one."""
+        return self.mesh is not None and self.mesh.size > 1
 
     def _posterior(self, inputs, condition, generator):
         """Joint PoE posterior over the present modalities (vae.py:126-165)."""
@@ -318,33 +318,43 @@ class InferenceSession:
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def _gather(self, visual, tactile, pose):
-        inputs = {}
-        if visual is not None:
-            inputs["visual"] = self._tensor(visual)
-        if tactile is not None:
-            inputs["tactile"] = self._tensor(tactile)
-        if pose is not None and self.cfg.use_pose:
-            inputs["pose"] = self._tensor(pose)
-        if not inputs:
+    def check_inputs(self, visual=None, tactile=None, pose=None, condition=None):
+        """Raise ``ValueError`` for inputs the model cannot take, before any
+        device work (the server checks a request here before its other
+        ranks see it)."""
+        self._modalities(visual, tactile, pose)
+        self._check_condition(condition)
+
+    def _modalities(self, visual, tactile, pose):
+        """The modalities the model encodes of the given ones."""
+        names = [m for m, x in (("visual", visual), ("tactile", tactile), ("pose", pose))
+                 if x is not None and (m != "pose" or self.cfg.use_pose)]
+        if not names:
             raise ValueError("at least one input modality is required")
         if (not self.cfg.is_mvae and self.cfg.problem_type != "regression"
-                and self.cfg.input_type not in inputs):
+                and self.cfg.input_type not in names):
             # a single-modality VAE's encoder was trained on input_type;
             # feeding the other image stream would silently decode garbage
             raise ValueError(f"this {self.cfg.model_name} was trained on "
-                             f"'{self.cfg.input_type}' input; got {sorted(inputs)}")
-        return inputs
+                             f"'{self.cfg.input_type}' input; got {names}")
+        return names
 
-    def _gather_condition(self, condition):
-        if not self.cfg.conditional:
-            return None
-        if condition is None:
+    def _check_condition(self, condition):
+        if self.cfg.conditional and condition is None:
             # fail with intent, not with a shape error inside the model: the
             # heads were trained on trunk+condition fan-in
             raise ValueError(
                 f"this model is conditional (condition_dim={self.cfg.condition_dim}); "
                 f"pass condition=(B, {self.cfg.condition_dim})")
+
+    def _gather(self, visual, tactile, pose):
+        given = {"visual": visual, "tactile": tactile, "pose": pose}
+        return {m: self._tensor(given[m]) for m in self._modalities(visual, tactile, pose)}
+
+    def _gather_condition(self, condition):
+        if not self.cfg.conditional:
+            return None
+        self._check_condition(condition)
         return self._tensor(condition)
 
     def predict(self, visual=None, tactile=None, pose=None, condition=None,
@@ -491,8 +501,21 @@ class InferenceSession:
         """The predictor at a fixed batch size, built once per signature
         (cached): on the card a CUDA graph, replayed on static buffers; on a
         CPU session (asked for explicitly) the eager fixed-shape callable.
-        Returns a ``FixedBatchPredictor``: ``fn(inputs, condition=None)``."""
-        self._require_one_rank("the CUDA-graph predictor")
+        Returns a ``FixedBatchPredictor``: ``fn(inputs, condition=None)``.
+
+        Under a group of more than one rank (the JAX package compiles with
+        the batch sharded), a CPU session's predictor takes the route of
+        ``predict``: every rank calls it together with the whole batch. On
+        the card that raises: a gloo collective cannot be captured in a CUDA
+        graph, and a graph of NCCL ranks on separate cards cannot be checked
+        on one card."""
+        if self.grouped and self.device.type == "cuda":
+            raise RuntimeError(
+                f"aot_predict under a process group of {self.mesh.size} ranks on the "
+                f"card: the gather of the ranks' rows is a collective, which a CUDA "
+                f"graph of a gloo group cannot capture (and a graph of NCCL ranks on "
+                f"separate cards cannot be checked on one card); call predict, "
+                f"every rank together")
         key = (int(batch_size), tuple(sorted(modalities)), bool(conditional),
                bool(sample), bool(uint8_images))
         if key not in self._aot_cache:
@@ -513,6 +536,11 @@ class FixedBatchPredictor:
     dropout the session's generator is registered with the graph, and a
     torch that cannot do that raises. A capture failure raises. One caller at
     a time: the buffers are shared.
+
+    Under a group (a CPU session only) each call computes this rank's rows
+    of the static buffers, BatchNorm over every rank's, and returns the whole
+    batch's outputs, as ``predict`` does; the noise buffer is drawn whole and
+    each rank keeps its rows, as ``parallel.mesh.global_draw`` draws.
     """
 
     def __init__(self, session, batch_size, modalities, conditional, sample, uint8_images):
@@ -536,8 +564,15 @@ class FixedBatchPredictor:
         self._graph = self._capture() if dev.type == "cuda" else None
 
     def _run(self):
-        return self.session._predict_core(self._inputs, self._condition, self._noise,
-                                          self.uint8_images, self.session.generator)
+        s = self.session
+        if not s.grouped:
+            return s._predict_core(self._inputs, self._condition, self._noise,
+                                   self.uint8_images, s.generator)
+        inputs, cond = s._shard(self._inputs, self._condition)
+        noise = None if self._noise is None else s._shard(self._noise, None)[0]
+        with sharded(s.mesh):
+            return s._whole(s._predict_core(inputs, cond, noise, self.uint8_images,
+                                            s.generator))
 
     def _capture(self):
         graph = torch.cuda.CUDAGraph()

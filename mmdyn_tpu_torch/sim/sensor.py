@@ -340,10 +340,11 @@ class TactileSensor(Sensor):
                        camera_location=self._position, grid_shape=grid_shape)
         return pcd
 
-    def get_tactile_image(self, rgb_img, depth_img, pointcloud):
+    def get_tactile_image(self, rgb_img, depth_img, pointcloud, i_specular=2.0,
+                          i_diffuse=2.0):
         """Phong-shade the clipped image + darken by penetration
-        (sensor.py:415-445)."""
-        self._set_lights(i_specular=2.0, i_diffuse=2.0)
+        (sensor.py:415-445), under the reference's lights by default."""
+        self._set_lights(i_specular=i_specular, i_diffuse=i_diffuse)
         illumination = self._shader.illumination(
             pointcloud.points, pointcloud.normals,
             self._camera.camera_eye_position)

@@ -91,12 +91,12 @@ class TactileRendererTorch:
         return cls._cache[key]
 
     @classmethod
-    def from_sensor(cls, sensor, device=None):
+    def from_sensor(cls, sensor, device=None, i_specular=2.0, i_diffuse=2.0):
         """Snapshot a TactileSensor's camera and shader configuration. Call
         after at least one ``get_sensor_image()`` so the view matrix is set.
-        The four edge lights are the i_specular = i_diffuse = 2.0
-        configuration of get_tactile_image (sensor.py:429)."""
-        sensor._set_lights(i_specular=2.0, i_diffuse=2.0)
+        The four edge lights take the given intensities; the defaults are
+        the configuration of get_tactile_image (sensor.py:429)."""
+        sensor._set_lights(i_specular=i_specular, i_diffuse=i_diffuse)
         cam = sensor.camera
         sh = sensor._shader
         return cls(

@@ -18,7 +18,8 @@ flagship's at a tiny size (cnn-mvae, visuotactile + pose, seq_modeling,
 latent 8, global batch 8, 24 sequences, 2 epochs of 3 steps): the point is
 the loader, group and collective plumbing. With ``--platform cpu``
 the ranks run on the CPU; otherwise rank i runs on card ``i % count``, gloo
-carrying its CUDA tensors (so two ranks may share one card).
+carrying its CUDA tensors (so two ranks may share one card), every process
+in full float32 (``set_reference_precision``).
 """
 
 import argparse
@@ -62,7 +63,11 @@ def run_training(platform, mesh=None):
     from mmdyn_tpu_torch.models import model_kwargs, setup_model
     from mmdyn_tpu_torch.problems import ProblemConfig, make_optimizer
     from mmdyn_tpu_torch.train import create_train_state, make_train_step
+    from mmdyn_tpu_torch.utils.device import set_reference_precision
 
+    # full float32 on the card: torch's default TF32 convolutions would hold
+    # the golden run and the ranks, at other batch shapes, to 3 digits only
+    set_reference_precision()
     device = mesh.device if mesh is not None else _device(platform, 0)
     cfg = ProblemConfig(problem_type="seq_modeling", model_name="cnn-mvae",
                         input_type="visuotactile", use_pose=True, latent_size=8,

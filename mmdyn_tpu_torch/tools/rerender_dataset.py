@@ -16,9 +16,9 @@ geometry (the sensor pose is not stored in the dumps; pass --size /
 --position to match another run). Depth PNGs quantise the buffer to uint8,
 so re-rendered images can differ from the originals by a few counts: exact
 parity is the job of --device-render at generation time, not of this tool.
-As in the JAX package's tool, the renderer takes the exp CLIs' light
-intensities (``TactileRendererTorch.from_sensor``: 2.0 and 2.0) whatever
---i-diffuse / --i-specular say.
+The edge lights take --i-diffuse / --i-specular (default 2.0 and 2.0, the
+exp CLIs' lights); the JAX package's tool renders under 2.0 and 2.0 whatever
+they say.
 
 Prints one JSON line: frames, seconds and frames/s, and the split of the
 seconds into ``host_read_s`` (PNG reads), ``render_s`` (the depth upload and
@@ -74,8 +74,9 @@ def main(argv=None):
                          position=list(args.position), sensor_vector=[0, 0, 1],
                          thickness=args.thickness)
     sensor.get_sensor_image()   # sets the view matrix
-    sensor._set_lights(i_specular=args.i_specular, i_diffuse=args.i_diffuse)
-    renderer = TactileRendererTorch.from_sensor(sensor, device=device)
+    renderer = TactileRendererTorch.from_sensor(sensor, device=device,
+                                                i_specular=args.i_specular,
+                                                i_diffuse=args.i_diffuse)
 
     if args.suffix and not args.suffix.startswith("-"):
         args.suffix = "-" + args.suffix.lstrip("_")

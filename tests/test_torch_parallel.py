@@ -12,8 +12,14 @@ module-level (the spawned processes import this module) and import no JAX:
 only the parent's test functions do.
 """
 
+import contextlib
+import dataclasses
+import http.client
+import io
 import json
 import math
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -25,10 +31,11 @@ from mmdyn_tpu_torch.data.compile import COMPILED_NAME
 from mmdyn_tpu_torch.data.synthetic import make_compiled_arrays
 from mmdyn_tpu_torch.models import model_kwargs, setup_model
 from mmdyn_tpu_torch.models.layers import bn_stats, train_batch_norm
-from mmdyn_tpu_torch.parallel import (all_reduce_grads, make_mesh, shard_batch, sharded,
-                                      spawn)
+from mmdyn_tpu_torch.parallel import (all_reduce_grads, make_mesh, reduce_metrics,
+                                      shard_batch, sharded, spawn)
 from mmdyn_tpu_torch.problems import ProblemConfig, make_optimizer
-from mmdyn_tpu_torch.serve import InferenceSession
+from mmdyn_tpu_torch.serve import InferenceSession, export_session, load_exported
+from mmdyn_tpu_torch.serve.server import follow, make_server
 from mmdyn_tpu_torch.tools import multihost_smoke
 from mmdyn_tpu_torch.train import create_train_state, make_train_step
 from mmdyn_tpu_torch.train.loop import Problem
@@ -86,11 +93,11 @@ def _train(cfg, mesh=None, state_dict=None, steps=3, **model_overrides):
     return {"losses": losses, "grads": grads, "params": params}
 
 
-def _serving_inputs(seed=5):
+def _serving_inputs(seed=5, rows=SERVE_ROWS):
     rng = np.random.default_rng(seed)
-    return {"visual": rng.uniform(size=(SERVE_ROWS, 64, 64, 3)).astype(np.float32),
-            "tactile": rng.uniform(size=(SERVE_ROWS, 64, 64, 3)).astype(np.float32),
-            "pose": rng.uniform(size=(SERVE_ROWS, 7)).astype(np.float32)}
+    return {"visual": rng.uniform(size=(rows, 64, 64, 3)).astype(np.float32),
+            "tactile": rng.uniform(size=(rows, 64, 64, 3)).astype(np.float32),
+            "pose": rng.uniform(size=(rows, 7)).astype(np.float32)}
 
 
 def _serve(state_dict, mesh=None):
@@ -147,6 +154,52 @@ def _port_ranks(case):
     return _train(_cfg(**PORT_CASES[case][0]), _mesh(2))
 
 
+@contextlib.contextmanager
+def _float64():
+    """Inside the block the port computes in float64: new tensors and
+    modules default to it, ``Tensor.float()`` keeps a float64 tensor (the
+    float32 policy's casts at the layer boundaries, the BatchNorm statistics,
+    the losses) and the MVAE's subset mask is float64."""
+    from mmdyn_tpu_torch.problems import reconstruction
+
+    dtype, to_float, tables = torch.get_default_dtype(), torch.Tensor.float, reconstruction._tables
+    torch.set_default_dtype(torch.float64)
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else to_float(t, *a, **k)
+    reconstruction._tables = lambda use_pose, device: (
+        (tables(use_pose, device)[0].double(),) + tables(use_pose, device)[1:])
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(dtype)
+        torch.Tensor.float = to_float
+        reconstruction._tables = tables
+
+
+def _first_grads(cfg, mesh=None):
+    """The first step's loss and gradients of ``_train``'s run in float64
+    (noise and dropout drawn, this rank's rows under ``mesh``)."""
+    from mmdyn_tpu_torch.train.steps import _loss_and_backward
+
+    with _float64():
+        model = setup_model(cfg.model_name, cross_modal=True, device="cpu", seed=0,
+                            **model_kwargs(cfg))
+        batch = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in _batch().items()}
+        loss, _ = _loss_and_backward(model, cfg, batch if mesh is None else
+                                     shard_batch(mesh, batch), torch.Generator().manual_seed(3),
+                                     1.0, mesh)
+        if mesh is not None:
+            loss = reduce_metrics(mesh, {"loss": loss})["loss"]
+            all_reduce_grads(mesh, model.parameters())
+        grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+        return float(loss.detach()), grads
+
+
+def _float64_ranks():
+    """Two ranks' float64 first step, and one process's on the global
+    batch, computed in the rank."""
+    return {"ranks": _first_grads(_cfg(), _mesh(2)), "one": _first_grads(_cfg())}
+
+
 def _bn_ranks():
     mesh = _mesh(2)
     x, w, b, cot = _bn_case()
@@ -163,6 +216,119 @@ def _shape_ranks():
                                        timeout=TIMEOUT)
     return {"flat": _train(_cfg(), flat, steps=2), "square": _train(_cfg(), square, steps=2),
             "shape": square.shape, "size": square.size}
+
+
+# serving across ranks: latent 8, the 16-row batch of tests/test_serve.py's
+# aot_predict under a mesh, an artifact at batch 8, a server at batch 4
+SERVE_LATENT, AOT_ROWS, EXPORT_ROWS, SERVER_BATCH = 8, 16, 8, 4
+
+
+def _serve_session(state_dict, mesh=None):
+    cfg = _cfg(latent_size=SERVE_LATENT)
+    return InferenceSession(cfg, {k: torch.as_tensor(v) for k, v in state_dict.items()},
+                            device="cpu", mesh=mesh)
+
+
+def _export_both(session, root):
+    """The session's artifacts at ``EXPORT_ROWS``, with batch statistics and
+    frozen on ``_serving_inputs(7)``: their manifests."""
+    frozen = session.freeze_bn(**_serving_inputs(7))
+    return [export_session(s, f"{root}/{name}", batch_size=EXPORT_ROWS)
+            for name, s in (("batch_bn", session), ("frozen_bn", frozen))]
+
+
+def _aot_export_ranks(state_dict, root):
+    """The two-rank session's ``aot_predict(16)`` outputs, and its
+    artifacts written under ``root`` (rank 0 writes, both return the
+    manifests)."""
+    session = _serve_session(state_dict, _mesh(2))
+    x = _serving_inputs(rows=AOT_ROWS)
+    fn = session.aot_predict(AOT_ROWS, ("visual", "tactile"))
+    out = {k: v.numpy() for k, v in fn({"visual": x["visual"], "tactile": x["tactile"]}).items()}
+    return {"aot": out, "manifests": _export_both(session, f"{root}/rank{session.mesh.rank}")}
+
+
+def _post(port, path, arrays=None):
+    """(status, npz or JSON error) of one POST with an npz body."""
+    body = b""
+    if arrays is not None:
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        body = buf.getvalue()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        return resp.status, json.loads(data)
+    return resp.status, dict(np.load(io.BytesIO(data)))
+
+
+def _requests():
+    """The serving tests' requests, in order: (name, path, body)."""
+    x = _serving_inputs(11, rows=SERVER_BATCH)
+    rows = lambda n: {k: v[:n] for k, v in x.items()}  # noqa: E731
+    return [("predict_1", "/predict", rows(1)),
+            ("bad_shape", "/predict", {"visual": np.zeros((1, 32, 32, 3), np.float32)}),
+            ("predict_4", "/predict", rows(4)),
+            ("predict_sample", "/predict?sample=1", rows(3)),
+            ("rollout", "/rollout?steps=3", rows(2)),
+            ("rollout_odd", "/rollout?steps=2", rows(1)),
+            ("prior", "/sample?n=3&seed=7", None)]
+
+
+def _serve_requests(server, requests):
+    """Every request's reply from ``server``, run in a thread, then closed."""
+    port = server.server_port
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        return {name: _post(port, path, body) for name, path, body in requests}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def _server_ranks(state_dict):
+    """Rank 0 serves the two-rank session over HTTP (micro-batching on) and
+    posts ``_requests()`` to itself; rank 1 follows. Rank 0 returns the
+    replies and the server's record, rank 1 the calls it made."""
+    session = _serve_session(state_dict, _mesh(2))
+    if session.mesh.rank:
+        return follow(session)
+    server = make_server(session, port=0, batch_size=SERVER_BATCH, microbatch_wait_ms=20.0)
+    replies = _serve_requests(server, _requests())
+    return {"replies": replies, "health": server.RequestHandlerClass.app.health()}
+
+
+IDLE_TIMEOUT = 5        # s: the group timeout of the idle-server test
+
+
+def _idle_server_ranks(state_dict):
+    """A two-rank server idle for twice its group's timeout, then asked
+    for one /predict: (rank 0's status, rank 1's calls). The pings every
+    second keep rank 1's wait for the next header inside the timeout."""
+    from datetime import timedelta
+
+    from mmdyn_tpu_torch.serve import server as server_module
+
+    server_module.KEEPALIVE_S = 1.0
+    mesh = _mesh(2)
+    session = _serve_session(state_dict, mesh)
+    torch.distributed.barrier()         # both sessions built: no skew below
+    group = torch.distributed.new_group(backend="gloo",
+                                        timeout=timedelta(seconds=IDLE_TIMEOUT))
+    session.mesh = dataclasses.replace(mesh, group=group, host_group=group)
+    if mesh.rank:
+        return follow(session)
+    server = make_server(session, port=0, batch_size=SERVER_BATCH)
+    time.sleep(2 * IDLE_TIMEOUT)
+    requests = [("predict", "/predict", _serving_inputs(rows=2))]
+    return _serve_requests(server, requests)["predict"][0]
 
 
 LOOP = dict(problem_type="seq_modeling", model_name="cnn-mvae", input_type="visuotactile",
@@ -316,6 +482,22 @@ def test_ranks_match_one_process(case):
         assert np.array_equal(v, ranks[1]["params"][k]), k
 
 
+def test_ranks_match_one_process_in_float64():
+    """The first step of two ranks in float64, noise and dropout drawn, sums
+    to one process's on the global batch within 1e-10 (relative, set from
+    float64's 2.2e-16 and the sums' lengths): the collectives (BatchNorm's
+    ``var_mean``, the global draws, ``all_reduce_grads``) compute the
+    one-process step exactly, and every float32 gap is rounding. On the
+    card that rounding flips the pose MLPs' ReLU kinks; ``chip_smoke.py``
+    (l7) measures it against a float64 step."""
+    for res in spawn(_float64_ranks, 2, timeout=TIMEOUT):
+        (got_loss, got), (want_loss, want) = res["ranks"], res["one"]
+        assert got_loss == pytest.approx(want_loss, rel=1e-10)
+        for name, g in want.items():
+            assert got[name].dtype == np.float64, name
+            assert _rel(got[name], g) <= 1e-10, (name, _rel(got[name], g))
+
+
 def test_train_batch_norm_across_ranks():
     """Per-subset train-mode BatchNorm (groups 7) over two ranks' rows equals
     the one-process BatchNorm of the global tensor: the output, and the
@@ -388,6 +570,137 @@ def test_make_mesh_needs_its_processes():
 
 
 @pytest.fixture(scope="module")
+def jax8():
+    """A flax MVAE at latent 8 (pose, no dropout): its config, parameters
+    as numpy and its weights in the port's layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from mmdyn_tpu.problems.base import ProblemConfig as JaxConfig
+    from mmdyn_tpu.serve import InferenceSession as JaxSession
+
+    from mmdyn_tpu_torch.utils.weights import params_from_jax
+
+    cfg = JaxConfig(problem_type="seq_modeling", model_name="cnn-mvae",
+                    input_type="visuotactile", use_pose=True, latent_size=SERVE_LATENT)
+    img = jnp.zeros((2, 64, 64, 3))
+    rngs = {k: jax.random.PRNGKey(i) for i, k in enumerate(("params", "dropout", "reparam"))}
+    params = JaxSession(cfg, {}).model.init(rngs, [img, img], jnp.zeros((2, 7)), None)
+    params = jax.tree_util.tree_map(np.asarray, params["params"])
+    sd = {k: v.numpy() for k, v in params_from_jax("cnn-mvae", params).items()}
+    return cfg, params, sd
+
+
+@pytest.fixture(scope="module")
+def aot_exported(jax8, tmp_path_factory):
+    """Two ranks' ``aot_predict(16)`` outputs and artifacts
+    (``_aot_export_ranks``), and the root of the artifacts."""
+    root = tmp_path_factory.mktemp("exports")
+    return spawn(_aot_export_ranks, 2, (jax8[2], str(root)), timeout=TIMEOUT), root
+
+
+def test_aot_predict_across_ranks_matches_the_jax_mesh(jax8, aot_exported):
+    """``aot_predict(16)`` of a two-rank CPU session, which every rank calls
+    with the whole batch: every rank returns the JAX ``aot_predict`` of a
+    ``make_mesh(2)`` session within atol 1e-5 (tests/test_serve.py:281's
+    bound)."""
+    import jax
+
+    from mmdyn_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from mmdyn_tpu.serve import InferenceSession as JaxSession
+
+    cfg, params, _ = jax8
+    session = JaxSession(cfg, params, mesh=jax_make_mesh(2))
+    x = _serving_inputs(rows=AOT_ROWS)
+    compiled = session.aot_predict(AOT_ROWS, ("visual", "tactile"))
+    want = compiled(session.variables, {"visual": x["visual"], "tactile": x["tactile"]}, None,
+                    jax.random.PRNGKey(0))
+    for res in aot_exported[0]:
+        assert set(res["aot"]) == set(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(res["aot"][k], np.asarray(v), atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["batch_bn", "frozen_bn"])
+def test_export_across_ranks_equals_one_process(jax8, aot_exported, tmp_path, frozen):
+    """``export_session`` of a two-rank session: rank 0 writes a one-device
+    artifact and both ranks return its manifest. Its outputs equal the
+    one-process artifact's bit for bit; frozen, the statistics were taken
+    over both ranks' rows, and the outputs are held at the bound of
+    ``test_freeze_bn_across_ranks_matches_one_rank`` (atol 1e-5)."""
+    ranks, root = aot_exported
+    name = "frozen_bn" if frozen else "batch_bn"
+    assert ranks[0]["manifests"] == ranks[1]["manifests"]
+    assert not (root / "rank1").exists()
+    want_manifests = _export_both(_serve_session(jax8[2]), tmp_path)
+    got_manifest = ranks[0]["manifests"][frozen]
+    assert got_manifest == want_manifests[frozen] and got_manifest["frozen_bn"] is frozen
+    x = {k: v[:EXPORT_ROWS] for k, v in _serving_inputs(3).items()}
+    got = load_exported(root / "rank0" / name)(**x)
+    want = load_exported(tmp_path / name)(**x)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if frozen:
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0, atol=1e-5, err_msg=k)
+        else:
+            assert torch.equal(got[k], v), k
+
+
+def _assert_replies_close(got, want, name):
+    assert set(got) == set(want), name
+    for k, w in want.items():
+        g, w = np.asarray(got[k]), np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, k, g.shape, w.shape)
+        if w.dtype == np.uint8:
+            assert np.abs(g.astype(int) - w.astype(int)).max() <= 1, (name, k)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=f"{name} {k}")
+
+
+def test_server_across_ranks_matches_jax_and_one_process(jax8):
+    """The HTTP server of a two-rank session (rank 0 serves and posts to
+    itself, micro-batching on; rank 1 follows): a malformed request is
+    refused on rank 0 and the ranks go on; /predict and /rollout equal the
+    JAX server of a ``make_mesh(2)`` session, and every reply, the sampled
+    ones too, the one-process port server's given the same requests in the
+    same order (uint8 within 1, floats atol 1e-5). A rollout of one row runs
+    padded to two, one per rank."""
+    from mmdyn_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from mmdyn_tpu.serve import InferenceSession as JaxSession
+    from mmdyn_tpu.serve.server import make_server as jax_make_server
+
+    rank0, calls = spawn(_server_ranks, 2, (jax8[2],), timeout=TIMEOUT)
+    got = rank0["replies"]
+    assert rank0["health"]["ranks"] == 2 and rank0["health"]["microbatching"]
+    # the warm-up's two predicts, then every request that reached the device
+    assert calls == 2 + 5
+    assert got["bad_shape"][0] == 400 and "visual must be" in got["bad_shape"][1]["error"]
+    requests = _requests()
+    one = _serve_requests(make_server(_serve_session(jax8[2]), port=0,
+                                      batch_size=SERVER_BATCH), requests)
+    cfg, params, _ = jax8
+    deterministic = [r for r in requests if r[0] in ("predict_1", "predict_4", "rollout")]
+    jax = _serve_requests(jax_make_server(JaxSession(cfg, params, mesh=jax_make_mesh(2)),
+                                          port=0, batch_size=SERVER_BATCH), deterministic)
+    for name, (status, want) in jax.items():
+        assert status == got[name][0] == 200, name
+        _assert_replies_close(got[name][1], want, name)
+    for name, (status, want) in one.items():
+        assert status == got[name][0], name
+        if status == 200:
+            _assert_replies_close(got[name][1], want, name)
+    assert got["rollout_odd"][1]["visual"].shape == (2, 1, 64, 64, 3)
+
+
+def test_idle_server_keeps_its_ranks(jax8):
+    """A two-rank server idle for twice its group's timeout still answers:
+    rank 0 pings the other ranks while idle (``KEEPALIVE_S``), whose wait
+    for the next header would otherwise end in the group's timeout."""
+    status, calls = spawn(_idle_server_ranks, 2, (jax8[2],), timeout=TIMEOUT)
+    assert status == 200 and calls == 2 + 1
+
+
+@pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp_ds")
     make_compiled_arrays(root / COMPILED_NAME, n_sequences=24, seq_length=2, seed=1)
@@ -457,8 +770,8 @@ def test_infer_cli_two_ranks_match_one_process(corpus, tmp_path):
     """``cli.infer --num-devices 2 --platform cpu``: each rank predicts its
     rows with BatchNorm over both; rank 0 writes the predictions, the
     calibrated rollout and the report of one process (uint8 PNGs at most 1
-    count apart); ``--export`` under two ranks raises, naming the queue
-    item."""
+    count apart); ``--export`` under two ranks writes rank 0's one-device
+    artifact, whose outputs equal the one-process artifact's bit for bit."""
     run = cli_main.main(["--problem-type", "seq_modeling", "--model-name", "cnn-mvae",
                          "--input-type", "visuotactile", "--use-pose", "--dataset-path",
                          str(corpus), "--batchsize", "4", "--latent-size", "8",
@@ -482,9 +795,17 @@ def test_infer_cli_two_ranks_match_one_process(corpus, tmp_path):
             a, b = _pngs(one_dir, prefix), _pngs(two_dir, prefix)
             assert len(a) == len(b) > 0, prefix
             assert max(int(np.abs(x - y).max()) for x, y in zip(a, b)) <= 1, prefix
-    with pytest.raises(RuntimeError, match="queue 1 item 5"):
-        infer.main(["--run", str(run), "--platform", "cpu", "--num-devices", "2",
-                    "--export", str(tmp_path / "art")])
+    arts = {}
+    for name, extra in (("one", []), ("two", ["--num-devices", "2"])):
+        manifest = infer.main(["--run", str(run), "--platform", "cpu", "--batchsize", "4",
+                               "--export", str(tmp_path / f"art_{name}")] + extra)
+        assert manifest["batch_size"] == 4 and manifest["platforms"] == ["cpu"]
+        arts[name] = load_exported(tmp_path / f"art_{name}")
+    x = {k: v[:4] for k, v in _serving_inputs().items() if k != "pose"}
+    want, got = arts["one"](**x), arts["two"](**x)
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 def test_one_rank_group_trains_bit_for_bit(corpus, tmp_path):

@@ -20,7 +20,13 @@ import http.client
 import io
 import json
 import pickle
+import re
+import signal
+import subprocess
+import sys
 import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,15 +42,17 @@ from mmdyn_tpu.serve import InferenceSession as JaxSession
 from mmdyn_tpu_torch.cli import infer, serve
 from mmdyn_tpu_torch.models import model_kwargs, setup_model
 from mmdyn_tpu_torch.models.layers import bn_stats, load_bn_stats
+from mmdyn_tpu_torch.parallel import Mesh
 from mmdyn_tpu_torch.problems.base import ProblemConfig, make_optimizer
 from mmdyn_tpu_torch.serve import InferenceSession, export_session, load_exported
-from mmdyn_tpu_torch.serve.server import ServingApp, _bucket, make_server
+from mmdyn_tpu_torch.serve.server import ServingApp, _bucket, check_serving_batch, make_server
 from mmdyn_tpu_torch.serve.session import _infer_condition_dim
 from mmdyn_tpu_torch.train import create_train_state
 from mmdyn_tpu_torch.train.checkpoint import save_checkpoint
 from mmdyn_tpu_torch.utils.weights import bn_stats_from_jax, params_from_jax
 
 LATENT, B, COND = 8, 3, 3
+REPO = Path(__file__).resolve().parents[1]
 PROB_TOL = dict(rtol=0, atol=1e-5)
 LATENT_TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -684,13 +692,75 @@ def test_cli_requires_exactly_one_source(cli, monkeypatch):
         cli.main(["--frames", "x"] if cli is infer else [])
     with pytest.raises(SystemExit):
         cli.main(["--run", "a", "--torch-ckpt", "b"])
-    if cli is serve:   # the HTTP server on several ranks is not ported
-        with pytest.raises(NotImplementedError, match="several cards"):
-            cli.main(["--run", "a", "--num-devices", "2"])
-    else:              # infer spawns one rank per card: on one card, an error
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-        with pytest.raises(RuntimeError, match="asks for 2 CUDA devices, but 1 is visible"):
-            cli.main(["--run", "a", "--num-devices", "2"])
+    # each spawns one rank per card: on one card, an error
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="asks for 2 CUDA devices, but 1 is visible"):
+        cli.main(["--run", "a", "--num-devices", "2"])
+
+
+def test_serving_batch_must_split_over_the_ranks():
+    """A session of a two-rank group serves no batch of 5: the server
+    refuses it before any collective, naming both numbers, as the CLI does
+    on every rank (``check_serving_batch``)."""
+    _, ts = _pair("mvae")
+    mesh = Mesh(rank=0, size=2, device=torch.device("cpu"), group=None, host_group=None,
+                shape=(2,))
+    session = InferenceSession(ts.cfg, ts.params, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="a serving batch of 5 rows does not split over 2 "
+                                         "ranks: pass a multiple of 2"):
+        make_server(session, port=0, batch_size=5)
+    with pytest.raises(ValueError, match="batch of 5 rows"):
+        check_serving_batch(5, 2)
+    check_serving_batch(4, 2)
+
+
+def _wait_for_line(path, text, proc, deadline):
+    """The first line of the file at ``path`` holding ``text``, waiting for
+    the process to write it until ``deadline``."""
+    while time.monotonic() < deadline:
+        for line in path.read_text().splitlines():
+            if text in line:
+                return line
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    raise AssertionError(f"no '{text}' line: exit {proc.poll()}, {path.read_text()[-2000:]}")
+
+
+def test_serve_cli_two_ranks_on_the_cpu(tmp_path):
+    """``python -m mmdyn_tpu_torch.cli.serve --num-devices 2 --platform
+    cpu --port 0``: the port from its "serving ... on http://..." line, one
+    /predict answered as one process answers it (uint8 within 1, mu atol
+    1e-5), then SIGINT to the process that spawned the ranks: every process
+    exits 0 within the limit."""
+    run, ts = _fake_run(tmp_path / "run", "mvae")
+    out, err = tmp_path / "out.txt", tmp_path / "err.txt"
+    with open(out, "w") as stdout, open(err, "w") as stderr:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mmdyn_tpu_torch.cli.serve", "--run", str(run),
+             "--platform", "cpu", "--num-devices", "2", "--port", "0", "--batchsize", "4"],
+            cwd=REPO, stdout=stdout, stderr=stderr)
+    try:
+        deadline = time.monotonic() + 120
+        line = _wait_for_line(out, "serving", proc, deadline)
+        port = int(re.search(r"http://127\.0\.0\.1:(\d+)", line).group(1))
+        assert "2 ranks" in line
+        x = _inputs(60, b=4)
+        status, data = _request(port, "POST", "/predict",
+                                _npz(visual=x["visual"][:3], tactile=x["tactile"][:3]))
+        assert status == 200, data
+        got = np.load(io.BytesIO(data))
+        # the server pads the 3 rows to its batch of 4 by repeating the last
+        padded = {m: np.concatenate([x[m][:3], x[m][2:3]]) for m in ("visual", "tactile")}
+        want = ts.predict(**padded, uint8_images=True)
+        assert np.abs(got["visual"].astype(int) - want["visual"][:3].numpy()).max() <= 1
+        np.testing.assert_allclose(got["mu"], want["mu"][:3].numpy(), rtol=0, atol=1e-5)
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=max(1.0, deadline - time.monotonic())) == 0, err.read_text()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def test_infer_cli_on_the_cpu(tmp_path):

@@ -268,6 +268,45 @@ def test_rerender_dataset_matches_jax(tmp_path, monkeypatch):
         assert np.abs(ours - dumped).mean() < 6.0
 
 
+def test_rerender_dataset_honours_the_lights(tmp_path):
+    """``--i-diffuse 1.0 --i-specular 0.5`` re-renders each frame as the
+    port's host sensor pipeline shades its depth PNG under those lights
+    (tests/test_torch_sim.py's bounds of the renderer against the host), and
+    not as the default lights do. The JAX tool keeps 2.0 and 2.0 whatever
+    the flags say."""
+    import cv2
+
+    from mmdyn_tpu_torch.sim.physics import AnalyticBackend
+    from mmdyn_tpu_torch.sim.sensor import make_sensor
+
+    demo.main(["--headless", "--engine", "analytic", "--object", "bowl",
+               "--n_timesteps", "60", "--interval", "20", "--seed", "3",
+               "--logdir", str(tmp_path)])
+    argv = ["--dataset", str(tmp_path), "--thickness", "0.01", "--batch", "2"] + CPU
+    rerender_dataset.main(argv + ["--suffix=-lit", "--i-diffuse", "1.0", "--i-specular", "0.5"])
+    rerender_dataset.main(argv + ["--suffix=-default"])
+    # the tool's sensor: its defaults of --size and --position
+    sensor = make_sensor(AnalyticBackend(), size=[1.5, 1.5, 1.0], position=[0, 0, 0.5],
+                         sensor_vector=[0, 0, 1], thickness=0.01)
+    rgb = sensor.get_sensor_image()[1]
+    depths = sorted((tmp_path / "dataset").glob("**/depth_*.png"))
+    assert len(depths) == 3
+
+    def frame(path, stream):
+        img = cv2.imread(str(path.with_name(path.name.replace("depth_", f"{stream}_"))))
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(int)
+
+    for path in depths:
+        depth = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE).astype(np.float32) / 255.0
+        host = sensor.get_tactile_image(rgb, depth, sensor.get_sensor_pointcloud(rgb, depth),
+                                        i_specular=0.5, i_diffuse=1.0)[:, :, :3].astype(int)
+        lit, default = frame(path, "tactile-lit"), frame(path, "tactile-default")
+        diff = np.abs(host - lit)
+        assert (diff <= 1).mean() > 0.998
+        assert (diff.max(axis=2) > 1).sum() < 2000
+        assert (np.abs(lit - default).max(axis=2) > 1).mean() > 0.5
+
+
 def _run_bullet_diff(main, argv):
     """(report, exit code) of a bullet_diff main; the report is the last
     line of its output (the CLIs it runs print progress)."""
