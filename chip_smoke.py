@@ -201,6 +201,30 @@ Phases, any failure raises and exits non-zero:
        process, (l2)'s rank 0, the floor) at their relative L2 distance to
        it, over all tensors and per tensor. Two ranks on one card are no
        evidence of scaling.
+   (m) convergence: ``mmdyn_tpu_torch.tools.elbo_parity.main`` in process,
+       after (k) part 2 in (j)'s temporary directory, the port's production
+       step against the reference-semantics golden model (``tools/gold.py``,
+       float32, the reference's 7 sequential subset passes) on the same
+       batches, Adam and KL schedule; synthetic runs at 4 frames, latent 64,
+       lr 1e-3, anneal 3; every gated run under cuDNN's deterministic
+       algorithms; the counters set to 0 around each run and held to 1 PoE
+       and 2 BCE launches per port MVAE step (bf16 BCE under
+       ``bfloat16_full``), none for the regressor. (m1) 64 sequences, batch
+       8, 30 epochs, ``--shared-init --noise-free --no-dropout``: the first
+       epoch within 1e-5 of the golden run and every epoch within 1% (the
+       epochs inside the JAX record's 0.15% counted, a reading); then twice
+       with the default algorithms (the run-to-run gap at epoch 30, a
+       reading). (m2)
+       ``docs/PARITY.md``'s conditional run (64 x 4, batch 8, 30 epochs, free
+       noise and dropout): the last-5 mean within 1% of the golden run's and
+       of ``docs/convergence/parity_conditional.json``'s ``jax_elbo``. (m3)
+       dyn_modeling 32 x 4, batch 8, 15 epochs: last-5 means within 1%.
+       (m4) the regressor, controlled, 3 epochs: every epoch within 1e-4;
+       then ``--seeds 0,1,2,3``, 30 epochs (a reading). (m5) (m2)'s
+       unconditional run under ``bfloat16_full``: finite and falling, its
+       drift from the float32 golden run a reading. (m6) (j2)'s compiled
+       exp_1 corpus, latent 256, batch 4, 30 epochs, anneal 15: last-5 means
+       within 1%. The gates read the unrounded trajectories.
 6. A ``kernels`` JSON line, the card's name and power limit from nvidia-smi,
    and last the result line.
 
@@ -868,11 +892,14 @@ def step_rerun_diff(problem):
 
 
 @contextlib.contextmanager
-def deterministic_cudnn():
+def deterministic_cudnn(enabled=True):
     """cuDNN's deterministic algorithms inside the block only: the paths and
-    the determinism reading outside it run with torch's defaults."""
+    the determinism reading outside it run with torch's defaults. With
+    ``enabled`` False the block runs with the default algorithms, whatever
+    the process set before (a serving session, (g), selects the
+    deterministic ones for the process)."""
     before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.deterministic = enabled
     try:
         yield
     finally:
@@ -2160,6 +2187,244 @@ def tools_dump_path(kernels, card, tmp):
     return out
 
 
+# (m): the training-trajectory harness (mmdyn_tpu_torch/tools/elbo_parity.py)
+M_SYNTH = ["--n-seq", "64", "--batch", "8", "--epochs", "30"]   # latent 64, anneal 3
+M_CONTROLLED = ["--shared-init", "--noise-free", "--no-dropout"]
+M_JAX_RECORD = REPO / "docs" / "convergence" / "parity_conditional.json"
+# (m1): the first epoch (8 steps, before rounding compounds) within 1e-5; the
+# JAX record's band, 0.15% (docs/PARITY.md "Root cause", item 1:
+# parity_controlled.json, 128 sequences at batch 64 for 30 epochs, 60 Adam
+# steps), over the same first 60 steps, rounded up to whole epochs (0-7, 64
+# steps); every epoch within BASELINE.md's 1%. Over the 240 steps the
+# record's band is printed, not gated: float32 rounding grows past it (in
+# float64 on the CPU the port stays within 1.5e-14 of the golden run over
+# all 30 epochs, tests/test_torch_elbo_parity.py::controlled_gaps)
+M_STEP_BAND = 1e-5
+M_JAX_CONTROLLED_BAND = 1.5e-3
+M_JAX_CONTROLLED_STEPS = 60
+M_LAST5_BAND = 0.01            # BASELINE.md:36: final ELBO within 1%
+M_REGRESSION_BAND = 1e-4       # (m4): docs/PARITY.md, "per-step dynamics are identical"
+
+
+def last5(history):
+    return sum(history[-5:]) / len(history[-5:])
+
+
+def rel_gap(a, b):
+    return abs(a - b) / abs(b)
+
+
+def parity_run(kernels, label, call, port_steps, mvae=True, bf16=False):
+    """One run of the harness on the card, in process (``call()``: its
+    ``main`` or its run functions), its report and epoch lines kept out of
+    the script's output; the kernel counters set to 0 before and read after,
+    held to 1 PoE and 2 BCE launches per port MVAE step (the BCE ones bf16
+    under ``bfloat16_full``) and none for the regressor; the golden side
+    launches none. Returns (what ``call`` returned, seconds, launches)."""
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        got = call()
+    seconds = time.perf_counter() - t0
+    launches = read_counters(kernels)
+    n = port_steps if mvae else 0
+    want = {"poe_reparam": n, "bce_sum": 2 * n, "bce_sum_bf16": 2 * n if bf16 else 0}
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches} over {port_steps} port "
+                             f"steps, expected {want}")
+    return got, seconds, launches
+
+
+def trajectories(label, report):
+    """The report's trajectories (the port's, per seed or one; the golden
+    one), each checked finite."""
+    every = dict(report.get("port_elbo_by_seed", {}))
+    for key in ("port_elbo", "torch_elbo"):
+        if key in report:
+            every[key] = report[key]
+    if not every or not all(math.isfinite(x) for h in every.values() for x in h):
+        raise AssertionError(f"{label}: a trajectory is not finite: {report}")
+    return report.get("port_elbo"), report.get("torch_elbo")
+
+
+def regression_controlled(argv, device):
+    """(m4)'s controlled run through the harness's own functions, as
+    ``main`` makes it, for the unrounded trajectories: the report's two
+    decimals are too coarse for a 1e-4 gate on a loss near 10."""
+    from mmdyn_tpu_torch.tools import elbo_parity
+    from mmdyn_tpu_torch.utils.device import set_reference_precision
+
+    args = elbo_parity.parse_args(argv)
+    set_reference_precision()
+    seqs = elbo_parity.make_synthetic_sequences(args.n_seq, args.seq_len)
+    model = elbo_parity.port_model(args, 0, device, seed=args.seed)
+    golden = elbo_parity.gold_model(args, 0, device, seed=args.seed)
+    golden.load_state_dict(model.state_dict())
+    return (elbo_parity.run_port(seqs, args, model, device, seed=args.seed),
+            elbo_parity.run_torch(seqs, args, golden, device, seed=args.seed))
+
+
+def convergence_path(kernels, card, tmp):
+    """(m): ``elbo_parity.main`` on the card, the port's production step
+    against the reference-semantics golden model on the same batches, over
+    hundreds of Adam steps; every gated comparison under cuDNN's
+    deterministic algorithms. Synthetic runs: 4 frames, latent 64, lr 1e-3,
+    anneal 3 (the tool's defaults)."""
+    from mmdyn_tpu_torch.tools import elbo_parity
+
+    t0 = time.perf_counter()
+    out, total = {}, dict(ZERO_LAUNCHES)
+    steps = {}
+
+    def timed(label, call, port_steps, **kw):
+        got, secs, launches = parity_run(kernels, label, call, port_steps, **kw)
+        for k, v in launches.items():
+            total[k] += v
+        steps[label] = port_steps
+        out.setdefault("seconds", {})[label] = secs
+        return got
+
+    def run(label, argv, port_steps, **kw):
+        report = timed(label, lambda: elbo_parity.main(argv), port_steps, **kw)
+        return (report,) + trajectories(label, report)
+
+    # (m1): controlled; the first epoch within 1e-5 of the golden run, the
+    # epochs of the JAX record's first 60 steps within its 0.15%, every epoch
+    # within 1%
+    with deterministic_cudnn():
+        report, port, gold_h = run("m1", M_SYNTH + M_CONTROLLED, 30 * 8)
+    gaps = [rel_gap(a, b) for a, b in zip(port, gold_h)]
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    early = -(-M_JAX_CONTROLLED_STEPS // 8)      # epochs of 8 steps
+    early_worst = max(range(early), key=gaps.__getitem__)
+    within = sum(g <= M_JAX_CONTROLLED_BAND for g in gaps)
+    if (gaps[0] > M_STEP_BAND or gaps[early_worst] > M_JAX_CONTROLLED_BAND
+            or gaps[worst] > M_LAST5_BAND):
+        raise AssertionError(f"(m1): epoch 0 is {gaps[0]:.3e} (band {M_STEP_BAND}), epoch "
+                             f"{early_worst} {gaps[early_worst]:.3e} (band "
+                             f"{M_JAX_CONTROLLED_BAND} over epochs 0-{early - 1}), epoch "
+                             f"{worst} {gaps[worst]:.3e} (band {M_LAST5_BAND}) from the golden "
+                             f"run: port {port} golden {gold_h}")
+    # the same run twice more with cuDNN's default algorithms: a reading
+    with deterministic_cudnn(False):
+        reruns = [run(f"m1 default algorithms {i}", M_SYNTH + M_CONTROLLED + ["--skip-torch"],
+                      30 * 8)[1] for i in (1, 2)]
+    free = [h[-1] for h in reruns]
+    spread = max(rel_gap(a, b) for x, y in ((reruns[0], reruns[1]), (reruns[0], port),
+                                            (reruns[1], port)) for a, b in zip(x, y))
+    out["m1"] = {"first_epoch_gap": gaps[0], "early_epochs": early,
+                 "early_worst_epoch": early_worst, "early_worst_gap": gaps[early_worst],
+                 "worst_epoch": worst, "worst_gap": gaps[worst],
+                 "epochs_within_jax_band": within,
+                 "final_gap_pct": report["final_gap_pct"], "port_final": port[-1],
+                 "golden_final": gold_h[-1], "default_algorithms_finals": free,
+                 "run_to_run_gap": rel_gap(free[0], free[1]), "rerun_spread": spread,
+                 "to_deterministic": [rel_gap(f, port[-1]) for f in free]}
+    say(f"[5/6] (m1) controlled seq_modeling, 64 x 4, batch 8, 30 epochs on {card}: epoch 0 "
+        f"is {gaps[0]:.3e} from the golden run (band {M_STEP_BAND}), the worst of epochs "
+        f"0-{early - 1} (the JAX record's {M_JAX_CONTROLLED_STEPS} steps) epoch {early_worst} "
+        f"{gaps[early_worst]:.3e} (band {M_JAX_CONTROLLED_BAND}), the worst epoch {worst} "
+        f"{gaps[worst]:.3e} (band {M_LAST5_BAND}); {within} of {len(gaps)} epochs within the JAX "
+        f"record's {M_JAX_CONTROLLED_BAND}; final {port[-1]:.2f} vs {gold_h[-1]:.2f}; with the "
+        f"default cuDNN algorithms twice: epoch 30 at {free[0]:.2f} / {free[1]:.2f}, run to run "
+        f"{out['m1']['run_to_run_gap']:.3e}, to the deterministic run "
+        + " / ".join(f"{g:.3e}" for g in out["m1"]["to_deterministic"])
+        + f"; the three runs' widest gap at any epoch {spread:.3e}")
+
+    # (m2): the recorded conditional run; last-5 means within 1% of the golden
+    # run and of the JAX package's record
+    record = json.loads(M_JAX_RECORD.read_text())["jax_elbo"]
+    with deterministic_cudnn():
+        report, port, gold_h = run("m2", M_SYNTH + ["--problem", "seq_modeling",
+                                                    "--conditional"], 30 * 8)
+    m2 = {"port_last5": last5(port), "golden_last5": last5(gold_h),
+          "jax_record_last5": last5(record), "final_gap_pct": report["final_gap_pct"]}
+    m2["to_golden"] = rel_gap(m2["port_last5"], m2["golden_last5"])
+    m2["to_jax_record"] = rel_gap(m2["port_last5"], m2["jax_record_last5"])
+    out["m2"] = m2
+    say(f"[5/6] (m2) conditional seq_modeling, 64 x 4, batch 8, 30 epochs, free noise and "
+        f"dropout: last-5 mean {m2['port_last5']:.2f}, golden {m2['golden_last5']:.2f} "
+        f"({m2['to_golden']:.3%} apart), the JAX record {m2['jax_record_last5']:.2f} "
+        f"({m2['to_jax_record']:.3%} apart); final_gap_pct {report['final_gap_pct']} (the "
+        f"record's 0.253)")
+    if m2["to_golden"] > M_LAST5_BAND or m2["to_jax_record"] > M_LAST5_BAND:
+        raise AssertionError(f"(m2): last-5 means over {M_LAST5_BAND:.0%}: {m2}; port {port}")
+
+    # (m3): dyn_modeling, 32 rows a step
+    with deterministic_cudnn():
+        report, port, gold_h = run("m3", ["--problem", "dyn_modeling", "--n-seq", "32",
+                                          "--batch", "8", "--epochs", "15"], 15 * 4)
+    out["m3"] = {"port_last5": last5(port), "golden_last5": last5(gold_h),
+                 "to_golden": rel_gap(last5(port), last5(gold_h)),
+                 "final_gap_pct": report["final_gap_pct"]}
+    say(f"[5/6] (m3) dyn_modeling, 32 x 4, batch 8 (32 rows), 15 epochs: last-5 mean "
+        f"{out['m3']['port_last5']:.2f}, golden {out['m3']['golden_last5']:.2f} "
+        f"({out['m3']['to_golden']:.3%} apart); final_gap_pct {report['final_gap_pct']}")
+    if out["m3"]["to_golden"] > M_LAST5_BAND:
+        raise AssertionError(f"(m3): last-5 means over {M_LAST5_BAND:.0%}: {out['m3']}")
+
+    # (m4): regression, controlled (gated, through the harness's run
+    # functions), then four seeds through main (a reading)
+    m4_argv = ["--problem", "regression", "--epochs", "3"] + M_CONTROLLED
+    with deterministic_cudnn():
+        port, gold_h = timed("m4", lambda: regression_controlled(m4_argv, torch.device("cuda")),
+                             3 * 2, mvae=False)
+    gaps = [rel_gap(a, b) for a, b in zip(port, gold_h)]
+    if not all(math.isfinite(x) for x in port + gold_h) or max(gaps) > M_REGRESSION_BAND:
+        raise AssertionError(f"(m4): controlled regression {gaps} over {M_REGRESSION_BAND}: "
+                             f"port {port} golden {gold_h}")
+    report, _, gold_h = run("m4 seeds", ["--problem", "regression", "--seeds", "0,1,2,3",
+                                         "--epochs", "30"], 4 * 30 * 2, mvae=False)
+    out["m4"] = {"controlled_worst_gap": max(gaps),
+                 "seed_finals": [h[-1] for h in report["port_elbo_by_seed"].values()],
+                 "golden_final": gold_h[-1]}
+    say(f"[5/6] (m4) regression, 32 sequences, batch 16: controlled 3 epochs, worst "
+        f"{max(gaps):.3e} (band {M_REGRESSION_BAND}); seeds 0-3, 30 epochs: the port "
+        f"{report['port_final_min']} - {report['port_final_max']} "
+        f"({rel_gap(report['port_final_max'], report['port_final_min']):.1%} spread), the "
+        f"golden anchor {gold_h[-1]} (the JAX record's band on real data: 5.87 - 7.35)")
+
+    # (m5): bfloat16_full at (m2)'s unconditional configuration
+    with deterministic_cudnn():
+        report, port, gold_h = run("m5", M_SYNTH + ["--dtype", "bfloat16_full"], 30 * 8,
+                                   bf16=True)
+    out["m5"] = {"port_first": port[0], "port_final": port[-1], "golden_final": gold_h[-1],
+                 "drift_pct": report["final_gap_pct"]}
+    say(f"[5/6] (m5) seq_modeling under bfloat16_full, 64 x 4, batch 8, 30 epochs: "
+        f"{port[0]:.2f} -> {port[-1]:.2f}; float32 golden {gold_h[-1]:.2f}, drift "
+        f"{report['final_gap_pct']}% (the JAX record's 1.687%)")
+    if not port[-1] < port[0] or not last5(port) < sum(port[:5]) / 5:
+        raise AssertionError(f"(m5): the bfloat16_full ELBO does not fall: {port}")
+
+    # (m6): (j2)'s compiled exp_1 corpus, latent 256
+    from mmdyn_tpu_torch.data.compile import load_packed
+
+    corpus = tmp / "gen" / "compiled.npz"
+    shape = load_packed(corpus)["visual"].shape
+    n_seq = min(32, shape[0])
+    with deterministic_cudnn():
+        report, port, gold_h = run("m6", ["--dataset", str(corpus), "--latent", "256",
+                                          "--batch", "4", "--epochs", "30", "--anneal", "15"],
+                                   30 * (n_seq // 4))
+    out["m6"] = {"sequences": shape[0], "frames": shape[1], "port_last5": last5(port),
+                 "golden_last5": last5(gold_h), "to_golden": rel_gap(last5(port), last5(gold_h)),
+                 "final_gap_pct": report["final_gap_pct"]}
+    say(f"[5/6] (m6) (j2)'s corpus, {shape[0]} sequences x {shape[1]} frames read ({n_seq} "
+        f"used), seq_modeling, latent 256, batch 4, 30 epochs, anneal 15: last-5 mean "
+        f"{out['m6']['port_last5']:.2f}, golden {out['m6']['golden_last5']:.2f} "
+        f"({out['m6']['to_golden']:.3%} apart); final_gap_pct {report['final_gap_pct']}")
+    if out["m6"]["to_golden"] > M_LAST5_BAND:
+        raise AssertionError(f"(m6): last-5 means over {M_LAST5_BAND:.0%}: {out['m6']}")
+
+    out["launches"] = total
+    out["port_steps"] = steps
+    out["total_s"] = time.perf_counter() - t0
+    say(f"[5/6] (m) took {out['total_s']:.1f} s on {card} ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in out["seconds"].items())
+        + f"); launches {total}")
+    return out
+
+
 # (l): data parallelism (mmdyn_tpu_torch/parallel) on the one card
 DDP_STEPS = 4
 DDP_TIMEOUT = 300
@@ -2922,6 +3187,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         simcli = simcli_path(kernels, card, datagen.pop("_chunk"), Path(tmp))
         tools["dumps"] = tools_dump_path(kernels, card, Path(tmp))
+        convergence = convergence_path(kernels, card, Path(tmp))
 
     for e in entries:
         # the bf16 kernel's main path is (d), the others' (a)
@@ -2936,12 +3202,14 @@ def main():
         e["launches_by_path"]["tools"] = (tools["launches"][e["name"]]
                                           + tools["dumps"]["launches"][e["name"]])
         e["launches_by_path"]["ddp"] = ddp["launches"][e["name"]]
+        e["launches_by_path"]["parity"] = convergence["launches"][e["name"]]
     if any(m.split(".")[0] in ("jax", "mmdyn_tpu") for m in sys.modules):
         raise AssertionError("the port loaded jax or the JAX package")
     say("[6/6] " + json.dumps({**{name: {k: p[k] for k in (
         "step_ms", "frames_per_s", "peak_gib", "busy_share", "conv_share") if k in p}
         for name, p in paths.items()}, "cli": cli, "serve": serve, "corpus": corpus,
-        "datagen": datagen, "simcli": simcli, "tools": tools, "ddp": ddp}))
+        "datagen": datagen, "simcli": simcli, "tools": tools, "ddp": ddp,
+        "convergence": convergence}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from mmdyn_tpu_torch.utils.device import resolve_device
+
 IMAGE_KEYS = ("visual", "tactile", "seg", "final_visual", "final_tactile")
 SEQUENCE_KEYS = ("visual", "tactile", "pose", "avail", "shock", "seg")
 
@@ -81,11 +83,12 @@ class BatchLoader:
                    else v[idx] for k, v in self.arrays.items()}
 
 
-def to_device_batch(batch: Dict[str, np.ndarray], device="cpu"):
-    """numpy batch -> tensors on ``device``; uint8 image keys travel as uint8
+def to_device_batch(batch: Dict[str, np.ndarray], device=None):
+    """numpy batch -> tensors on ``device`` (the card unless told otherwise,
+    ``utils/device.py::resolve_device``); uint8 image keys travel as uint8
     and become float32 / 255 there. On the card the host arrays are pinned
     first and copied without blocking, on the current stream."""
-    device = torch.device(device)
+    device = resolve_device(device)
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -97,9 +100,10 @@ def to_device_batch(batch: Dict[str, np.ndarray], device="cpu"):
     return out
 
 
-def device_prefetch(iterator, device="cpu", size: int = 2):
-    """Yield the batches of ``iterator`` on ``device``, a background thread
-    preparing them ``size`` ahead.
+def device_prefetch(iterator, device=None, size: int = 2):
+    """Yield the batches of ``iterator`` on ``device`` (the card unless told
+    otherwise; without one the call raises), a background thread preparing
+    them ``size`` ahead.
 
     On the card the thread copies and scales on a side stream and records an
     event; before a batch is handed over, the consumer's stream waits for
@@ -110,7 +114,10 @@ def device_prefetch(iterator, device="cpu", size: int = 2):
     ``break`` out of the loop, then ``close()``) stops the thread and drops
     the batches it prepared.
     """
-    device = torch.device(device)
+    return _prefetch(iterator, resolve_device(device), size)
+
+
+def _prefetch(iterator, device, size):
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def prepare(batch):

@@ -1,7 +1,8 @@
 """The evaluation, serving-bench and data tools on the port, one module per
 tool of the JAX package's ``tools/`` with the same file name, flags and
 output schema: ``rollout_eval``, ``counterfactual``, ``accuracy_suite``,
-``bench_infer``, ``bench_http``, ``rerender_dataset`` and ``bullet_diff``.
+``bench_infer``, ``bench_http``, ``rerender_dataset``, ``bullet_diff`` and
+``elbo_parity`` (with its reference-semantics golden model, ``gold``).
 
     python -m mmdyn_tpu_torch.tools.<name> ... [--platform cpu]
 

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from mmdyn_tpu_torch.utils.device import resolve_device
+
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str]):
@@ -40,10 +42,11 @@ class StepTimer:
     On the card each mark records a CUDA event on the current stream, so
     marking never waits; the first read waits for the last event and takes
     the device's time between marks. On the CPU a mark reads the host clock.
+    ``device`` is the card unless told otherwise (``resolve_device``).
     """
 
-    def __init__(self, device="cpu"):
-        self.cuda = torch.device(device).type == "cuda"
+    def __init__(self, device=None):
+        self.cuda = resolve_device(device).type == "cuda"
         self.reset()
 
     def reset(self):

@@ -1,6 +1,7 @@
 """The port stands alone: ``mmdyn_tpu_torch``, ``chip_smoke.py`` and the
 kernel bench ``tools/bce_bf16_bench.py`` import neither JAX, nor the JAX
-package, nor the repository's ``tools`` package (the JAX package's tools)."""
+package, nor the repository's ``tools`` package (the JAX package's tools),
+nor its ``tests``."""
 
 import re
 import subprocess
@@ -20,7 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(mmdyn_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu", "tools"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu", "tools",
+                                         "tests"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -35,7 +37,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert n_modules >= 20, out.stdout
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|tools)\b"
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|tools|tests)\b"
                         r"|\bmmdyn_tpu\.", re.MULTILINE)
 
 
@@ -56,7 +58,8 @@ try:
 except SystemExit as e:
     assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu", "tools"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "mmdyn_tpu", "tools",
+                                         "tests"))
 print("LOADED", bad)
 assert not bad, bad
 """
@@ -78,12 +81,13 @@ assert not bad, bad
     ("tools.rerender_dataset", ("--suffix", "--thickness")),
     ("tools.bullet_diff", ("--engines", "--skip-run")),
     ("tools.multihost_smoke", ("--spawn", "--timeout")),
+    ("tools.elbo_parity", ("--shared-init", "--seeds")),
 ])
 def test_cli_help_loads_no_jax(cli, flags):
     """``python -m mmdyn_tpu_torch.cli.<cli> --help`` (and
     ``mmdyn_tpu_torch.tools.<tool>``) in a fresh interpreter prints the
     entry point's flags and loads neither JAX, nor the JAX package, nor the
-    JAX package's ``tools``."""
+    JAX package's ``tools``, nor the repository's ``tests``."""
     module = cli if cli.startswith("tools.") else f"cli.{cli}"
     out = subprocess.run([sys.executable, "-c", _CLI_HELP.format(module=module)], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
