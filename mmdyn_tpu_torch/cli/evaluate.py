@@ -44,7 +44,8 @@ def main(argv=None):
 
     from mmdyn_tpu_torch.train.loop import Problem, stream_seed
     from mmdyn_tpu_torch.train.steps import make_sample_fn
-    from mmdyn_tpu_torch.utils.device import device_for_platform, set_reference_precision
+    from mmdyn_tpu_torch.utils.device import (cudnn_deterministic, device_for_platform,
+                                              set_reference_precision)
     from mmdyn_tpu_torch.utils.runs import config_from_args, load_run_args, trained_policy
 
     device = device_for_platform(args.platform)
@@ -85,6 +86,7 @@ def main(argv=None):
     # --- prior samples ---------------------------------------------------------
     sample_fn = make_sample_fn(problem.cfg, n=args.n_samples, device=device)
     if sample_fn is not None:
+        sample_fn = cudnn_deterministic(sample_fn, device)
         cond = None
         if cfg.conditional:
             cond = torch.rand((args.n_samples, problem.cfg.condition_dim),

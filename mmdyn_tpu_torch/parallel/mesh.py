@@ -28,8 +28,10 @@ Host values (the stop flag, the run's name, barriers) go through a gloo
 group on CPU tensors, so reading them never waits for the device.
 
 Processes: ``spawn`` starts N ranks in fresh processes around a file
-rendezvous; under ``torchrun`` (``WORLD_SIZE`` set) ``make_mesh`` joins the
-group from the environment; without either, a one-rank group.
+rendezvous; processes launched by hand give ``make_mesh`` a ``tcp://``
+address, their count and their rank; under ``torchrun`` (``WORLD_SIZE``
+set) ``make_mesh`` joins the group from the environment; without any of
+these, a one-rank group.
 """
 
 from __future__ import annotations
@@ -104,12 +106,17 @@ def _rank_device(devices, rank, world):
 
 def make_mesh(num_devices: Optional[int] = None, devices: Optional[Sequence] = None,
               mesh_shape: Optional[Sequence[int]] = None, backend: Optional[str] = None,
-              timeout: Optional[float] = None) -> Mesh:
+              timeout: Optional[float] = None, init_method: Optional[str] = None,
+              rank: Optional[int] = None) -> Mesh:
     """This process's ``Mesh``: rank ``r`` of the group drives ``devices[r]``
     (by default ``cuda:LOCAL_RANK``).
 
-    The group is the one already initialised (by ``spawn``), else the one
-    ``torchrun``'s environment names, else a one-rank group of this process.
+    The group is the one already initialised (by ``spawn``), else, with
+    ``init_method`` (``tcp://HOST:PORT``), the group of ``num_devices``
+    processes that rendezvous there, this one at ``rank`` (launched by hand,
+    as the JAX package's ``jax.distributed.initialize`` is given its
+    coordinator); else the one ``torchrun``'s environment names, else a
+    one-rank group of this process.
     ``num_devices`` and ``mesh_shape``, when given, must match its size.
     ``backend`` defaults to NCCL for a CUDA device and gloo for the CPU; a
     backend other than the initialised group's gets a group of its own over
@@ -122,7 +129,12 @@ def make_mesh(num_devices: Optional[int] = None, devices: Optional[Sequence] = N
                              f"num_devices={num_devices}")
         num_devices = n
     owns = not dist.is_initialized()
-    if owns:
+    if owns and init_method is not None:
+        if num_devices is None or rank is None or not 0 <= rank < num_devices:
+            raise ValueError(f"init_method {init_method!r} needs num_devices and a rank "
+                             f"in [0, num_devices): {num_devices}, {rank}")
+        world = num_devices
+    elif owns:
         rank = int(os.environ.get("RANK", 0))
         world = int(os.environ.get("WORLD_SIZE", 1))
     else:
@@ -138,7 +150,10 @@ def make_mesh(num_devices: Optional[int] = None, devices: Optional[Sequence] = N
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if owns:
-        if "WORLD_SIZE" in os.environ:
+        if init_method is not None:
+            dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                    world_size=world, **kw)
+        elif "WORLD_SIZE" in os.environ:
             dist.init_process_group(backend, init_method="env://", rank=rank,
                                     world_size=world, **kw)
         else:

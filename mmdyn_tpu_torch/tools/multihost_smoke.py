@@ -12,8 +12,15 @@ per-step losses must equal the golden ones within 1e-5 relative.
     python -m mmdyn_tpu_torch.tools.multihost_smoke --spawn 2 [--platform cpu]
 
 The parent prints one JSON line ``{"ok": ..., "process_i_max_rel_gap": ...}``
-and exits 0 when every rank agrees. Under ``torchrun`` (without ``--spawn``)
-each process runs as one rank and prints its losses. The model is the
+and exits 0 when every rank agrees. Without ``--spawn`` each process runs as
+one rank and prints its losses: launched by hand, as the JAX tool's children
+are, each joins the group at ``--coordinator`` (``parallel.make_mesh`` over
+``tcp://HOST:PORT``) as rank ``--process-id`` of ``--num-processes``:
+
+    python -m mmdyn_tpu_torch.tools.multihost_smoke --coordinator 127.0.0.1:29500 \
+        --num-processes 2 --process-id 0 [--platform cpu]    # and --process-id 1
+
+or, without ``--coordinator``, under ``torchrun``. The model is the
 flagship's at a tiny size (cnn-mvae, visuotactile + pose, seq_modeling,
 latent 8, global batch 8, 24 sequences, 2 epochs of 3 steps): the point is
 the loader, group and collective plumbing. With ``--platform cpu``
@@ -88,16 +95,26 @@ def run_training(platform, mesh=None):
     return losses
 
 
-def rank_main(platform):
-    """One rank: join the group, train, return (rank, losses)."""
+def rank_main(platform, coordinator=None, num_processes=None, process_id=None,
+              timeout=None):
+    """One rank: join the group (the initialised one, or the one at
+    ``coordinator``), train, return (rank, losses)."""
     import torch.distributed as dist
 
     from mmdyn_tpu_torch.parallel import make_mesh
 
-    rank, world = dist.get_rank(), dist.get_world_size()
+    if coordinator is None:
+        world, kw = dist.get_world_size(), {}
+    else:
+        world = num_processes
+        kw = {"init_method": f"tcp://{coordinator}", "rank": process_id,
+              "timeout": timeout}
     devices = [_device(platform, r) for r in range(world)]
-    mesh = make_mesh(world, devices=devices, backend="gloo")
-    return mesh.rank, run_training(platform, mesh)
+    mesh = make_mesh(world, devices=devices, backend="gloo", **kw)
+    try:
+        return mesh.rank, run_training(platform, mesh)
+    finally:
+        mesh.close()
 
 
 def parent_main(args):
@@ -127,8 +144,15 @@ def build_parser():
     ap = argparse.ArgumentParser(description="Multi-process data-parallel smoke test")
     ap.add_argument("--spawn", type=int, default=0,
                     help="parent mode: run the golden run, then spawn N ranks")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank in the group at --coordinator")
+    ap.add_argument("--num-processes", type=int, default=2,
+                    help="the number of processes in the group at --coordinator")
+    ap.add_argument("--coordinator", default=None,
+                    help="HOST:PORT where the processes launched by hand rendezvous")
     ap.add_argument("--timeout", type=float, default=300.0,
-                    help="seconds the spawned ranks may take in all")
+                    help="seconds the spawned ranks may take in all (with "
+                         "--coordinator, the bound on each collective)")
     ap.add_argument("--platform", default=None, type=str,
                     help="'cpu' runs the ranks on the CPU; otherwise the CUDA cards")
     return ap
@@ -142,11 +166,18 @@ def main(argv=None):
 
     from mmdyn_tpu_torch.parallel import launched
 
-    if not launched():
-        raise SystemExit("without --spawn this runs as one rank under torchrun")
-    if not dist.is_initialized():
-        dist.init_process_group("gloo")
-    rank, losses = rank_main(args.platform)
+    if args.coordinator is not None:
+        if args.process_id is None:
+            raise SystemExit("--coordinator needs --process-id")
+        rank, losses = rank_main(args.platform, args.coordinator, args.num_processes,
+                                 args.process_id, args.timeout)
+    else:
+        if not launched():
+            raise SystemExit("without --spawn this runs as one rank at --coordinator "
+                             "or under torchrun")
+        if not dist.is_initialized():
+            dist.init_process_group("gloo")
+        rank, losses = rank_main(args.platform)
     print(json.dumps({"process": rank, "losses": losses}))
     return {"process": rank, "losses": losses}
 

@@ -5,7 +5,8 @@ mmdyn/pytorch/problems/problems.py:23-216).
 The loop keeps the JAX package's behaviour: batches prefetched to the
 device, losses held there and read once per epoch, best-validation and
 rolling checkpoints, a SIGTERM snapshot at the next step boundary and a
-``resume`` that continues a stopped run as if it had never stopped. Every
+``resume`` that continues a stopped run as if it had never stopped, bit for
+bit on the card too (``utils/device.py::cudnn_deterministic``). Every
 draw of dropout, noise and augmentation comes from one training generator
 on the device, whose state the checkpoints carry; prior samples for the
 image log come from generators seeded apart from it, so logging less often
@@ -51,7 +52,7 @@ from mmdyn_tpu_torch.train.metrics import MetricWriter, NullWriter
 from mmdyn_tpu_torch.train.profiler import StepTimer, trace
 from mmdyn_tpu_torch.train.state import create_train_state
 from mmdyn_tpu_torch.train.steps import make_eval_step, make_sample_fn, make_train_step
-from mmdyn_tpu_torch.utils.device import resolve_device
+from mmdyn_tpu_torch.utils.device import cudnn_deterministic, resolve_device
 
 TRAIN_STREAM, SAMPLE_STREAM = 0, 1
 
@@ -164,9 +165,15 @@ class Problem:
             stream_seed(seed, TRAIN_STREAM))
         self.state = create_train_state(self.model,
                                         make_optimizer(self.cfg, self.model.parameters()))
-        self.train_step = make_train_step(self.cfg, device=self.device, mesh=mesh)
-        self.eval_step = make_eval_step(self.cfg, device=self.device, mesh=mesh)
+        # on the card every step runs cuDNN's deterministic algorithms, so a
+        # step reruns bit for bit and a resumed run is the uninterrupted one
+        self.train_step = cudnn_deterministic(
+            make_train_step(self.cfg, device=self.device, mesh=mesh), self.device)
+        self.eval_step = cudnn_deterministic(
+            make_eval_step(self.cfg, device=self.device, mesh=mesh), self.device)
         self.sample_fn = make_sample_fn(self.cfg, n=50, device=self.device)
+        if self.sample_fn is not None:
+            self.sample_fn = cudnn_deterministic(self.sample_fn, self.device)
 
         if resume:
             self._resume()
@@ -357,8 +364,9 @@ class Problem:
 
         SIGTERM asks for a stop: the loop saves an exact snapshot as
         ``latest`` at the next step boundary and returns, and a ``resume``
-        run continues it as the uninterrupted run would have gone on
-        (bit-identical on the CPU). Under a mesh a SIGTERM to any rank stops
+        run continues it as the uninterrupted run would have gone on,
+        bit-identical on the CPU and on the card (whose steps run cuDNN's
+        deterministic algorithms). Under a mesh a SIGTERM to any rank stops
         them all at one step.
         """
         cfg = self.cfg

@@ -45,8 +45,8 @@ class NullWriter:
 
 
 class MetricWriter:
-    """Scalars and text to ``metrics.jsonl``; scalars, images, figures and
-    hparams to TensorBoard when it is on and imports."""
+    """Scalars and text to ``metrics.jsonl``; scalars, images, figures,
+    histograms and hparams to TensorBoard when it is on and imports."""
 
     def __init__(self, log_dir, tensorboard=True):
         self.log_dir = Path(log_dir)
@@ -73,11 +73,15 @@ class MetricWriter:
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), int(step))
 
+    def image(self, tag, image_hwc, step):
+        """Log one (H, W, C) float image in [0, 1]."""
+        if self._tb is not None:
+            self._tb.add_image(tag, np.asarray(image_hwc).transpose(2, 0, 1), int(step))
+
     def image_grid(self, tag, images_nhwc, step, nrow=8):
         """Log (N, H, W, C) float images in [0, 1] as one panel."""
         if self._tb is not None:
-            grid = make_grid(np.asarray(images_nhwc), nrow=nrow)
-            self._tb.add_image(tag, grid.transpose(2, 0, 1), int(step))
+            self.image(tag, make_grid(np.asarray(images_nhwc), nrow=nrow), step)
 
     def text(self, tag, message, step=0):
         self._write({"tag": tag, "text": str(message), "step": int(step),
@@ -92,6 +96,10 @@ class MetricWriter:
         else:
             import matplotlib.pyplot as plt
             plt.close(fig)
+
+    def histogram(self, tag, values, step):
+        if self._tb is not None:
+            self._tb.add_histogram(tag, np.asarray(values), int(step))
 
     def hparams(self, params: dict, metrics: dict):
         """End-of-run hyperparameters and final metrics (problems.py:208)."""

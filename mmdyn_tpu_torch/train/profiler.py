@@ -78,6 +78,11 @@ class StepTimer:
         t = self._step_times()
         return sum(t) / len(t) if t else 0.0
 
+    @property
+    def min_step_time(self) -> float:
+        t = self._step_times()
+        return min(t) if t else 0.0
+
     def frames_per_sec(self, batch_size: int) -> float:
         mt = self.mean_step_time
         return batch_size / mt if mt > 0 else 0.0

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -63,3 +65,33 @@ def set_reference_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def cudnn_deterministic(fn, device):
+    """``fn`` as a training ``Problem`` calls it on ``device``: on a card, each
+    call runs with cuDNN's deterministic algorithms (the setting before the
+    call is restored after it); elsewhere ``fn`` itself.
+
+    In float32 cuDNN's default algorithms for the convolutions' data and
+    weight gradients, and for the decoders' transposed-convolution forwards
+    (a data gradient in cuDNN's terms), sum in an order that changes from
+    call to call: one step rerun from one state differs in its last bits,
+    and a resumed run drifts from the uninterrupted one. The JAX package's
+    step reruns bit for bit. The bf16 policies' default algorithms rerun bit
+    for bit already, and there the setting costs nothing. The backward runs
+    inside the call, so the setting covers it. The unwrapped function is
+    ``__wrapped__``.
+    """
+    if torch.device(device).type != "cuda":
+        return fn
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cudnn.deterministic = before
+
+    return call

@@ -1,6 +1,6 @@
-"""Pose triad figures for ``--vis-pose`` (the port's copy of the figure
-helpers of ``mmdyn_tpu/utils/plots.py``; reference
-mmdyn/pytorch/utils/plots.py).
+"""Pose triad figures (the port's copy of ``mmdyn_tpu/utils/plots.py``;
+reference mmdyn/pytorch/utils/plots.py): the TensorBoard grids of
+``--vis-pose`` and ``plot_pose``'s per-sequence figure files.
 
 3-D RGB-axes renders of predicted against target poses. The reference reads
 the stored xyzw quaternion as wxyz (pyquaternion's argument order); that is
@@ -9,6 +9,8 @@ figure is drawn.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -108,3 +110,46 @@ def plot_single_pose_tensorboard(pose=np.array([[0, 0, 0, 1, 0, 0, 0]]),
     if show:
         plt.show()
     return fig
+
+
+def plot_pose(output, target, plot_dir, title, show=False, seq_length=30,
+              axis_lim=2, normalized_quaternions=True, sv=False):
+    """Per-sequence figure files of output-vs-target triads
+    (plots.py:102-184): ``plot_dir/<title>_<i>.png`` for each whole sequence
+    of ``seq_length`` rows. ``output`` / ``target`` are (N, 7) arrays."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    pose_1 = np.asarray(output)
+    pose_2 = np.asarray(target)
+    positions_1, quaternions_1 = pose_1[:, :3], pose_1[:, 3:]
+    positions_2, quaternions_2 = pose_2[:, :3], pose_2[:, 3:]
+    if normalized_quaternions:
+        quaternions_1 = 2 * quaternions_1 - 1
+        quaternions_2 = 2 * quaternions_2 - 1
+
+    for i in range(len(positions_1) // seq_length):
+        fig = plt.figure(figsize=(seq_length, 1))
+        plt.subplots_adjust(top=0.98, right=0.98, left=0.02, bottom=0.1,
+                            wspace=0.1, hspace=0.01)
+        for j in range(seq_length):
+            ax = fig.add_subplot(1, seq_length, j + 1, projection="3d")
+            ax.set_xlim((-axis_lim, axis_lim))
+            ax.set_ylim((-axis_lim, axis_lim))
+            ax.set_zlim((-axis_lim, axis_lim))
+            ax.tick_params(axis="both", labelbottom=False, labelleft=False,
+                           labelright=False, labeltop=False)
+            colors = ["r", "g", "b"]
+            lines_1 = sum([ax.plot([], [], [], c=c, linestyle="-", linewidth=2)
+                           for c in colors], [])
+            lines_2 = sum([ax.plot([], [], [], c=c, linestyle="--", linewidth=2)
+                           for c in colors], [])
+            idx = i * seq_length + j
+            plot_lines(positions_1[idx, :], quaternions_1[idx, :], lines_1)
+            plot_lines(positions_2[idx, :], quaternions_2[idx, :], lines_2)
+        fig.canvas.draw()
+        if show:
+            plt.show()
+        fig.savefig(os.path.join(plot_dir, title + "_" + str(i)), dpi=300)
+        plt.close(fig)

@@ -80,17 +80,23 @@ assert not bad, bad
     ("tools.bench_http", ("--wait-ms", "--calibrate-frames")),
     ("tools.rerender_dataset", ("--suffix", "--thickness")),
     ("tools.bullet_diff", ("--engines", "--skip-run")),
-    ("tools.multihost_smoke", ("--spawn", "--timeout")),
+    ("tools.multihost_smoke", ("--spawn", "--timeout", "--coordinator", "--num-processes",
+                               "--process-id")),
     ("tools.elbo_parity", ("--shared-init", "--seeds")),
+    ("tools.plot_run", ("--run", "--out", "--title")),
 ])
 def test_cli_help_loads_no_jax(cli, flags):
     """``python -m mmdyn_tpu_torch.cli.<cli> --help`` (and
     ``mmdyn_tpu_torch.tools.<tool>``) in a fresh interpreter prints the
     entry point's flags and loads neither JAX, nor the JAX package, nor the
-    JAX package's ``tools``, nor the repository's ``tests``."""
+    JAX package's ``tools``, nor the repository's ``tests``. Every entry
+    point that runs on a device takes ``--platform``; ``plot_run`` reads a
+    run's metrics on the host and has none."""
     module = cli if cli.startswith("tools.") else f"cli.{cli}"
+    if cli != "tools.plot_run":
+        flags += ("--platform",)
     out = subprocess.run([sys.executable, "-c", _CLI_HELP.format(module=module)], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert all(f in out.stdout for f in flags + ("--platform",)), out.stdout
+    assert all(f in out.stdout for f in flags), out.stdout
     assert "LOADED []" in out.stdout

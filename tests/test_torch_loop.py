@@ -3,7 +3,13 @@
 the JAX package's run layout, on a small synthetic compiled corpus."""
 
 import json
+import os
 import pickle
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -239,3 +245,156 @@ def test_step_timer_on_the_cpu():
         t.mark()
     assert t.mean_step_time > 0
     assert t.frames_per_sec(4) == pytest.approx(4 / t.mean_step_time)
+
+
+class TestPreemption:
+    """JAX tests/test_train.py::TestPreemption on the port: a real ``cli.main``
+    process is sent SIGTERM mid-run, and its ``--resume`` run ends with the
+    final parameters and optimizer state of an uninterrupted run bit for bit,
+    its replayed epochs' validation losses and its steps' losses equal. The
+    corpus is the JAX test's (10 sequences x 2 frames, seed 0, 3 epochs); the
+    model the flagship's at latent 8, batch 2 (4 steps an epoch): its epochs
+    leave the signal most of a second to land in."""
+
+    ARGV = ["-m", "mmdyn_tpu_torch.cli.main", "--problem-type", "seq_modeling",
+            "--model-name", "cnn-mvae", "--input-type", "visuotactile", "--use-pose",
+            "--latent-size", "8", "--batchsize", "2", "--num-epochs", "3",
+            "--annealing-epochs", "2", "--seed", "0", "--no-tensorboard",
+            "--platform", "cpu"]
+    REPO = Path(__file__).resolve().parents[1]
+
+    def _cmd(self, ds, log_dir, *extra):
+        return [sys.executable, *self.ARGV, "--dataset-path", str(ds), "--log-dir",
+                str(log_dir), *extra]
+
+    def _run(self, ds, log_dir, *extra):
+        out = subprocess.run(self._cmd(ds, log_dir, *extra), cwd=self.REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr + out.stdout
+        return out.stdout
+
+    @staticmethod
+    def _records(log_dir, tag):
+        path = Path(log_dir) / "tensorboard" / "metrics.jsonl"
+        if not path.exists():
+            return {}
+        recs = [json.loads(line) for line in path.read_text().splitlines() if line]
+        return {r["step"]: r["value"] for r in recs if r["tag"] == tag}
+
+    @staticmethod
+    def _results(log_dir):
+        with open(Path(log_dir) / "results.pkl", "rb") as f:
+            return pickle.load(f)
+
+    def _sigterm_after_first_step_record(self, ds, log_dir):
+        proc = subprocess.Popen(self._cmd(ds, log_dir), cwd=self.REPO,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            deadline = time.monotonic() + 300
+            while not self._records(log_dir, "Loss/train_step"):
+                assert proc.poll() is None and time.monotonic() < deadline, \
+                    proc.communicate()
+                time.sleep(0.002)
+            os.kill(proc.pid, signal.SIGTERM)
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, err + out
+        return out
+
+    def test_sigterm_kill_resume_matches_uninterrupted(self, tmp_path):
+        make_compiled_arrays(tmp_path / "ds" / COMPILED_NAME, n_sequences=10, seq_length=2)
+        ds, golden, pre = tmp_path / "ds", tmp_path / "golden", tmp_path / "pre"
+        self._run(ds, golden)
+        golden_val = self._results(golden)["Loss/validation_epoch"]
+        assert len(golden_val) == 3
+
+        out = self._sigterm_after_first_step_record(ds, pre)
+        assert "preempted: saved 'latest'" in out, out
+        assert len(self._results(pre)["Loss/validation_epoch"]) < 3
+        assert (pre / "checkpoint" / "latest").exists()
+
+        out = self._run(ds, pre, "--resume")
+        assert "resumed from" in out, out
+        val = self._results(pre)["Loss/validation_epoch"]
+        assert 1 <= len(val) and val == golden_val[-len(val):]
+        steps, golden_steps = (self._records(d, "Loss/train_step") for d in (pre, golden))
+        assert len(golden_steps) == 12 and steps == golden_steps
+        a, b = (torch.load(d / "checkpoint" / "latest", weights_only=True)
+                for d in (golden, pre))
+        assert (a["epoch"], a["step"]) == (b["epoch"], b["step"]) == (2, 12)
+        for name, v in a["model"].items():
+            assert torch.equal(v, b["model"][name]), name
+        for i, s in a["optimizer"]["state"].items():
+            for k, v in s.items():
+                assert torch.equal(torch.as_tensor(v), torch.as_tensor(
+                    b["optimizer"]["state"][i][k])), (i, k)
+        assert torch.equal(a["generator"], b["generator"])
+
+
+def test_metric_writer_image_and_histogram_match_jax(tmp_path):
+    """``MetricWriter.image`` / ``histogram`` (mmdyn_tpu/train/metrics.py:63,
+    :88): the JAX signatures; neither writes a JSONL record, so both runs'
+    ``metrics.jsonl`` hold the same records, and TensorBoard gets the same
+    image and histogram tags from both."""
+    from mmdyn_tpu.train.metrics import MetricWriter as JaxWriter
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    from mmdyn_tpu_torch.train.metrics import MetricWriter
+
+    rng = np.random.default_rng(0)
+    image, panel = rng.uniform(size=(8, 6, 3)), rng.uniform(size=(5, 8, 8, 3))
+    values = rng.normal(size=200)
+    tags = {}
+    for name, cls in (("jax", JaxWriter), ("port", MetricWriter)):
+        w = cls(tmp_path / name)
+        w.scalar("Loss/x", 1.5, 0)
+        w.image("Img/one", image, 2)
+        w.image_grid("Img/grid", panel, 2, nrow=3)
+        w.histogram("Hist/v", values, 3)
+        w.close()
+        acc = EventAccumulator(str(tmp_path / name)).Reload()
+        tags[name] = {k: sorted(acc.Tags()[k]) for k in ("images", "histograms", "scalars")}
+    assert tags["port"] == tags["jax"] == {"images": ["Img/grid", "Img/one"],
+                                           "histograms": ["Hist/v"], "scalars": ["Loss/x"]}
+
+    def records(name):
+        lines = (tmp_path / name / "metrics.jsonl").read_text().splitlines()
+        return [{k: v for k, v in json.loads(line).items() if k != "time"} for line in lines]
+
+    assert records("port") == records("jax") == [{"tag": "Loss/x", "value": 1.5, "step": 0}]
+
+
+def test_step_timer_min_step_time_matches_jax(monkeypatch):
+    """``StepTimer.min_step_time`` (mmdyn_tpu/train/profiler.py:56) on the
+    host clock: the shortest interval between marks, 0.0 before two marks,
+    as the JAX timer reads it."""
+    from mmdyn_tpu.train.profiler import StepTimer as JaxTimer
+
+    for timer in (JaxTimer(), StepTimer("cpu")):
+        clock = iter([10.0, 11.0, 13.0, 13.5])
+        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+        assert timer.min_step_time == 0.0
+        for _ in range(4):
+            timer.mark()
+        assert timer.min_step_time == 0.5
+        assert timer.mean_step_time == pytest.approx(3.5 / 3, abs=0)
+        monkeypatch.undo()
+
+
+def test_plot_pose_writes_the_jax_files(tmp_path):
+    """``utils/plots.py::plot_pose`` (mmdyn_tpu/utils/plots.py:113): one
+    figure file per whole sequence of ``seq_length`` rows, named as the JAX
+    function names them."""
+    from mmdyn_tpu.utils.plots import plot_pose as jax_plot_pose
+
+    from mmdyn_tpu_torch.utils.plots import plot_pose
+
+    rng = np.random.default_rng(0)
+    out, tgt = rng.uniform(size=(9, 7)), rng.uniform(size=(9, 7))
+    for name, fn in (("jax", jax_plot_pose), ("port", plot_pose)):
+        (tmp_path / name).mkdir()
+        fn(out, tgt, str(tmp_path / name), "pose_val", seq_length=4)
+    files = {name: sorted(p.name for p in (tmp_path / name).iterdir())
+             for name in ("jax", "port")}
+    assert files["port"] == files["jax"] == ["pose_val_0.png", "pose_val_1.png"]

@@ -844,3 +844,40 @@ def test_multihost_smoke_tool():
                                    "--timeout", str(TIMEOUT)])
     assert report["ok"], report
     assert report["process_0_max_rel_gap"] <= 1e-5 and report["process_1_max_rel_gap"] <= 1e-5
+
+
+def test_multihost_smoke_launched_by_hand():
+    """Two ``multihost_smoke --coordinator 127.0.0.1:<port> --num-processes 2
+    --process-id i`` processes, started as the JAX tool's parent starts its
+    children, join one group through ``make_mesh``'s ``tcp://`` rendezvous;
+    each rank's losses are the ``--spawn 2`` golden run's within the tool's
+    1e-5."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mmdyn_tpu_torch.tools.multihost_smoke", "--platform",
+         "cpu", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(i), "--timeout", str(TIMEOUT)],
+        cwd=Path(__file__).resolve().parents[1], env={**os.environ, "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(2)]
+    golden = multihost_smoke.run_training("cpu")
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=TIMEOUT)
+        finally:
+            p.kill()
+        assert p.returncode == 0, err
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    assert [o["process"] for o in outs] == [0, 1]
+    for o in outs:
+        assert len(o["losses"]) == len(golden) == 6
+        rel = max(abs(a - b) / max(abs(b), 1e-9) for a, b in zip(o["losses"], golden))
+        assert rel <= 1e-5, (o, golden)

@@ -39,17 +39,20 @@ from mmdyn_tpu.utils import training as jax_training
 from tools import accuracy_suite as jax_accuracy
 from tools import bullet_diff as jax_bullet_diff
 from tools import counterfactual as jax_counterfactual
+from tools import plot_run as jax_plot_run
 from tools import rerender_dataset as jax_rerender
 from tools import rollout_eval as jax_rollout_eval
 
 from mmdyn_tpu_torch.cli import demo
+from mmdyn_tpu_torch.cli import main as cli_main
 from mmdyn_tpu_torch.data.compile import COMPILED_NAME
 from mmdyn_tpu_torch.data.synthetic import make_compiled_arrays, make_synthetic_dumps
 from mmdyn_tpu_torch.models import model_kwargs, setup_model
 from mmdyn_tpu_torch.models import vae
 from mmdyn_tpu_torch.problems.base import ProblemConfig, make_optimizer
 from mmdyn_tpu_torch.tools import (accuracy_suite, bench_http, bench_infer, bullet_diff,
-                                   counterfactual, rerender_dataset, rollout_eval)
+                                   counterfactual, plot_run, rerender_dataset,
+                                   rollout_eval)
 from mmdyn_tpu_torch.train import create_train_state
 from mmdyn_tpu_torch.train.checkpoint import save_checkpoint
 from mmdyn_tpu_torch.utils import training
@@ -441,3 +444,37 @@ def test_tools_want_a_card(tool, argv):
         pytest.skip("a CUDA device is present: the tools take it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(argv)
+
+
+@pytest.mark.parametrize("source", ["refcfg_exp1_record", "port_run"])
+def test_plot_run_summary_is_byte_equal_to_jax(tmp_path, source):
+    """``plot_run --run <run> --out <png>``: the summary JSON beside the chart
+    is byte-equal to the JAX tool's on the same ``metrics.jsonl``: the JAX
+    package's reference-configuration record (100 epochs, validation all 0,
+    frames/s) and a 5-epoch port run through ``cli.main`` (validation
+    losses); ``main`` returns the summary and the chart exists."""
+    from pathlib import Path
+
+    run = tmp_path / "run"
+    if source == "port_run":
+        make_compiled_arrays(tmp_path / "ds" / COMPILED_NAME, n_sequences=12,
+                             seq_length=2, seed=3)
+        cli_main.main(["--model-name", "cnn-vae", "--input-type", "visual",
+                       "--dataset-path", str(tmp_path / "ds"), "--batchsize", "2",
+                       "--num-epochs", "5", "--latent-size", "8", "--log-dir", str(run),
+                       "--no-tensorboard"] + CPU)
+    else:
+        run.mkdir()
+        repo = Path(__file__).resolve().parents[1]
+        shutil.copy(repo / "docs" / "convergence" / "refcfg_exp1_metrics.jsonl",
+                    run / "metrics.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()):
+        jax_plot_run.main(["--run", str(run), "--out", str(tmp_path / "jax" / "run.png")])
+        summary = plot_run.main(["--run", str(run), "--out",
+                                 str(tmp_path / "port" / "run.png")])
+    got, want = ((tmp_path / side / "run.json").read_bytes() for side in ("port", "jax"))
+    assert got == want
+    assert json.loads(got) == summary and (tmp_path / "port" / "run.png").exists()
+    assert ("val_last" in summary) == (source == "port_run")
+    if source == "refcfg_exp1_record":
+        assert summary["train_first"] == 77985.95 and summary["epochs"] == 100
