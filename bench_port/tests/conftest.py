@@ -1,0 +1,28 @@
+"""Tests of the benchmark itself (``python -m pytest bench_port/tests``).
+
+Tests marked ``card`` need a CUDA card and skip without one: the fixture
+``card`` decides, when the test runs. On the card: ``python -m pytest
+bench_port/tests -m card``.
+"""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs on the chip")
+    return torch.device("cuda")
