@@ -128,6 +128,14 @@ PROBLEM_PARSERS = {
 }
 
 
+def step_rows(cfg: ProblemConfig, seq_length: int) -> int:
+    """The rows one step trains: every frame of a sequence where the parser
+    flattens the sequences (dyn_modeling, reconstruction), else one a
+    sequence."""
+    per_sequence = seq_length if cfg.problem_type in ("dyn_modeling", "reconstruction") else 1
+    return cfg.batchsize * per_sequence
+
+
 def parse_batch(cfg: ProblemConfig, batch):
     return PROBLEM_PARSERS[cfg.problem_type](cfg, batch)
 

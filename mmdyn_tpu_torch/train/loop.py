@@ -46,10 +46,11 @@ from mmdyn_tpu_torch.parallel.mesh import (agree, broadcast_object, gather_rows,
                                            sharded)
 from mmdyn_tpu_torch.problems.base import (ProblemConfig, anneal_kl, make_optimizer,
                                            select_compute_dtype)
+from mmdyn_tpu_torch.problems.specs import step_rows
 from mmdyn_tpu_torch.train.checkpoint import (latest_checkpoint, restore_checkpoint,
                                               save_checkpoint)
 from mmdyn_tpu_torch.train.metrics import MetricWriter, NullWriter
-from mmdyn_tpu_torch.train.profiler import StepTimer, trace
+from mmdyn_tpu_torch.train.profiler import Tracer, trace
 from mmdyn_tpu_torch.train.state import create_train_state
 from mmdyn_tpu_torch.train.steps import make_eval_step, make_sample_fn, make_train_step
 from mmdyn_tpu_torch.utils.device import cudnn_deterministic, resolve_device
@@ -84,7 +85,7 @@ class Problem:
         self.image_interval = max(1, int(image_interval))
         self.ckpt_interval = max(1, int(ckpt_interval))
         self.vis_pose = vis_pose
-        self._step_timer = StepTimer(self.device)
+        self._tracer = Tracer(self.device)
         self._best_loss = np.inf
         self._start_epoch = 0
         self._skip_batches = 0          # resume mid-epoch: steps already taken
@@ -233,42 +234,53 @@ class Problem:
 
     # ------------------------------------------------------------------
     def _train_epoch(self, epoch, kl_weight):
+        """One training epoch, recorded by the tracer as spans that tile it
+        (``train/profiler.py``): ``train.epoch_start`` to the first step
+        call, then ``train.step`` and ``train.loader_wait`` in turn,
+        ``train.read_back`` and ``train.log``."""
         n_batches = len(self.train_loader)
         losses, perf_acc = [], defaultdict(list)
         skip, self._skip_batches = self._skip_batches, 0
-        self._step_timer.reset()
-        with self._batches(self.train_loader, skip) as batches:
-            for b, batch in enumerate(batches, start=skip):
-                self._step_timer.mark()
-                self.state, metrics = self.train_step(self.state, batch, self.generator,
-                                                      kl_weight)
-                losses.append(metrics["loss"])
-                for k, v in metrics.items():
-                    if k != "loss":
-                        perf_acc[k].append(v)
-                if self._stop_agreed():
-                    # SIGTERM: an exact snapshot of the state, the generator and
-                    # the position, then unwind; train() stops the run
-                    save_checkpoint(self.checkpoint_dir, self.state, epoch,
-                                    self._best_loss, name="latest",
-                                    generator=self.generator, batch_in_epoch=b + 1,
-                                    mesh=self.mesh)
-                    self._preempted = True
-                    self._log(f"preempted: saved 'latest' at epoch {epoch} step "
-                              f"{b + 1}/{n_batches}; resume with --resume")
-                    break
-        self._step_timer.mark()
-        step_losses, perf = self._read(losses, perf_acc)
-        for i, loss in enumerate(step_losses):
-            self.writer.scalar("Loss/train_step", loss, epoch * n_batches + skip + i)
-        train_loss = sum(step_losses)
-        self._logger_dict["Loss/train_epoch"].append(train_loss / max(len(step_losses), 1))
-        self._logger_dict["KL_annealing/train_epoch"].append(kl_weight)
-        for k, vs in perf.items():
-            self._logger_dict[f"Perf_measure_train/{k}"].append(sum(vs) / max(n_batches, 1))
-        if self._step_timer.mean_step_time > 0:
-            self._logger_dict["Perf/frames_per_sec"].append(
-                self._step_timer.frames_per_sec(self.cfg.batchsize))
+        tracer = self._tracer
+        with tracer.epoch(epoch, step_rows(self.cfg, self.seq_length)) as record:
+            with self._batches(self.train_loader, skip) as batches:
+                for b, batch in enumerate(batches, start=skip):
+                    tracer.step(b)
+                    self.state, metrics = self.train_step(self.state, batch,
+                                                          self.generator, kl_weight)
+                    losses.append(metrics["loss"])
+                    for k, v in metrics.items():
+                        if k != "loss":
+                            perf_acc[k].append(v)
+                    if self._stop_agreed():
+                        # SIGTERM: an exact snapshot of the state, the generator
+                        # and the position, then unwind; train() stops the run
+                        save_checkpoint(self.checkpoint_dir, self.state, epoch,
+                                        self._best_loss, name="latest",
+                                        generator=self.generator, batch_in_epoch=b + 1,
+                                        mesh=self.mesh)
+                        self._preempted = True
+                        self._log(f"preempted: saved 'latest' at epoch {epoch} step "
+                                  f"{b + 1}/{n_batches}; resume with --resume")
+                        break
+                    tracer.loader_wait(b + 1)
+            tracer.read_back()
+            step_losses, perf = self._read(losses, perf_acc)
+            tracer.log()
+            for i, loss in enumerate(step_losses):
+                self.writer.scalar("Loss/train_step", loss, epoch * n_batches + skip + i)
+            train_loss = sum(step_losses)
+            self._logger_dict["Loss/train_epoch"].append(
+                train_loss / max(len(step_losses), 1))
+            self._logger_dict["KL_annealing/train_epoch"].append(kl_weight)
+            for k, vs in perf.items():
+                self._logger_dict[f"Perf_measure_train/{k}"].append(
+                    sum(vs) / max(n_batches, 1))
+            # the rows the step trains, as the benchmark counts frames (B x T
+            # for dyn_modeling; the JAX loop counts B)
+            if tracer.timer.mean_step_time > 0:
+                self._logger_dict["Perf/frames_per_sec"].append(
+                    tracer.timer.frames_per_sec(record.rows))
         return train_loss
 
     def _test_epoch(self, epoch, kl_weight):

@@ -227,7 +227,7 @@ class _Board:
 def test_images_samples_figures_and_trace(ds, tmp_path):
     """With TensorBoard on: reconstruction panels, prior samples and, with
     ``vis_pose``, the pose triad figures; with a profile directory, a trace
-    of epoch 1."""
+    of epoch 1 that holds the loop's spans."""
     p = _problem(ds, tmp_path, vis_pose=True, profile_dir=str(tmp_path / "prof"))
     p.writer._tb = _Board()
     p.train()
@@ -235,7 +235,9 @@ def test_images_samples_figures_and_trace(ds, tmp_path):
     assert {"Output_img/validation_visual", "Output_img/validation_tactile",
             "Samples/latent_space_visual", "Pose_validation/input",
             "Pose_validation/output_vs_target"} <= logged
-    assert (tmp_path / "prof" / "trace.json").exists()
+    trace = tmp_path / "prof" / "trace.json"
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"train.epoch_start", "train.step", "train.read_back"} <= names
 
 
 def test_step_timer_on_the_cpu():
