@@ -26,7 +26,16 @@ Phases, any failure raises and exits non-zero:
    ``F.binary_cross_entropy_with_logits`` on the upcast logits), and on the
    inputs of its scalar-load path (K=3, B=3, P=7; B=5, P=12287; logits one
    element off 16-byte alignment, timed) and adversarial values (|x| up to
-   90, exact zeros, a fully masked row).
+   90, exact zeros, a fully masked row). The float32 convolutions' weight
+   gradient (``conv_wgrad_f32``) at the shapes of one dyn_modeling step at
+   256 x 8, the encoders' four convolutions at 2,048 rows and the decoders'
+   four transposed ones at 8,192: against the plain version in float64 on
+   the card (max gap within 1e-5 of the largest element; cuDNN's
+   deterministic float32 gradient's gap beside it), two launches bit for
+   bit and a second process's bit for bit; kernel, plain-version and cuDNN
+   deterministic (the library call, which the port never calls) times
+   beside the operation bound; and each layer's forward, data and weight
+   gradient under cuDNN's deterministic algorithms by kernel (a reading).
 4. Train steps on the card against the same steps on the CPU (same weights,
    no dropout, loss rel 1e-4 over two steps): the seq flagship at batch 32;
    dyn_modeling at 8 x 4 with ``mask_loss`` (the masked BCE kernel inside a
@@ -46,8 +55,9 @@ Phases, any failure raises and exits non-zero:
    counters set to 0 just before and read just after; losses finite and
    falling:
    (a) the seq flagship: cnn-mvae, visuotactile + pose, seq_modeling,
-       latent 256, float32, batch 512; 5 steps, 1 PoE and 2 BCE launches
-       each; the determinism reading at batch 512 and 128 (every
+       latent 256, float32, batch 512; 5 steps, 1 PoE, 2 BCE and 16
+       ``conv_wgrad_f32`` launches each (8 for the cnn-vae of (c), none
+       under ``bfloat16_full``); the determinism reading at batch 512 and 128 (every
        convolution of one step replayed three times with cuDNN's default
        algorithms and three with its deterministic ones: the outputs that
        differ, by layer family and output, which under the deterministic
@@ -341,6 +351,22 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
+def events_ms(fn, reps=3):
+    """Mean device ms of ``fn`` over ``reps`` calls between two CUDA events,
+    after a warm call: for work whose host side is too slow for ``Timer``'s
+    queue (the plain versions' allocations; cuDNN's algorithm set-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(bytes_moved, flops):
     """(ms, 'bytes' or 'operations'): the larger of the two floor times."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -580,10 +606,176 @@ def check_bce_bf16(kernels, timer, dev, f32, k=4, b=512, p=64 * 64 * 3, dyn_rows
             "misaligned_ms": scalar_ms}
 
 
+# the weight gradients of one dyn_modeling step at 256 x 8 (2,048 rows): the
+# two encoders' conv_trunk at 2,048 rows, the two decoders' hallucinate at
+# 8,192 (4 subsets in one call); (layer, transposed, C_in, C_out, stride,
+# padding, input side, rows)
+WGRAD_LAYERS = (
+    ("conv(3, 32, 4, 2, 1)", False, 3, 32, 2, 1, 64, 2048),
+    ("conv(32, 64, 4, 2, 1)", False, 32, 64, 2, 1, 32, 2048),
+    ("conv(64, 128, 4, 2, 1)", False, 64, 128, 2, 1, 16, 2048),
+    ("conv(128, 256, 4, 1, 0)", False, 128, 256, 1, 0, 8, 2048),
+    ("deconv(256, 128, 4, 1, 0)", True, 256, 128, 1, 0, 5, 8192),
+    ("deconv(128, 64, 4, 2, 1)", True, 128, 64, 2, 1, 8, 8192),
+    ("deconv(64, 32, 4, 2, 1)", True, 64, 32, 2, 1, 16, 8192),
+    ("deconv(32, 3, 4, 2, 1)", True, 32, 3, 2, 1, 32, 8192),
+)
+WGRAD_REPLACES = "none (XLA computes the JAX package's convolution gradients)"
+
+
+def wgrad_case(layer, dev, seed):
+    """The layer's input, output gradient and weight on the card, drawn from
+    ``seed``: (x, dy, w, kernel x, kernel dy), the kernel's pair being the
+    convolution's (x, dy), or a transposed convolution's (dy, x)."""
+    _, transposed, c_in, c_out, s, p, side, rows = layer
+    out = (side - 1) * s - 2 * p + 4 if transposed else (side + 2 * p - 4) // s + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, c_in, side, side), generator=g, device=dev)
+    dy = torch.randn((rows, c_out, out, out), generator=g, device=dev)
+    w = torch.empty((c_in, c_out, 4, 4) if transposed else (c_out, c_in, 4, 4), device=dev)
+    return (x, dy, w) + ((dy, x) if transposed else (x, dy))
+
+
+def wgrad_hashes():
+    """The kernel's weight gradient of every ``WGRAD_LAYERS`` case from its
+    seed, as sha256 of its bytes; run in a second process by
+    ``check_conv_wgrad``."""
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    from mmdyn_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    out = []
+    for i, layer in enumerate(WGRAD_LAYERS):
+        *_, kx, kdy = wgrad_case(layer, dev, 100 + i)
+        dw = kernels._conv_wgrad_cuda(kx, kdy, layer[4], layer[5])
+        out.append(hashlib.sha256(dw.cpu().numpy().tobytes()).hexdigest())
+    return out
+
+
+def library_wgrad(layer, x, dy, w):
+    """cuDNN's deterministic weight gradient of the layer, as the step called
+    it before the kernel (``aten.convolution_backward`` for the weight alone):
+    a yardstick, which the port never calls."""
+    _, transposed, *_ = layer
+    s, p = layer[4], layer[5]
+    with deterministic_cudnn(True):
+        return torch.ops.aten.convolution_backward(
+            dy, x, w, None, [s, s], [p, p], [1, 1], transposed, [0, 0], 1,
+            (False, True, False))[1]
+
+
+def conv_pass_split(layer, x, dy, w):
+    """The layer's three passes with cuDNN's deterministic algorithms, each
+    profiled once: {pass: [(kernel, device ms)]}."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    import torch.nn.functional as F
+
+    _, transposed, *_ = layer
+    s, p = layer[4], layer[5]
+
+    def backward(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            dy, x, w, None, [s, s], [p, p], [1, 1], transposed, [0, 0], 1, mask)
+
+    passes = {
+        "forward": (lambda: F.conv_transpose2d(x, w, None, s, p)) if transposed
+        else (lambda: F.conv2d(x, w, None, s, p)),
+        "data grad": backward((True, False, False)),
+        "weight grad": backward((False, True, False)),
+    }
+    out = {}
+    with deterministic_cudnn(True):
+        for name, fn in passes.items():
+            fn()
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            out[name] = [(e.key, dev_us(e) / 1e3) for e in prof.key_averages()
+                         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                         and dev_us(e) > 0]
+    return out
+
+
+def check_conv_wgrad(kernels, timer, dev, rel=1e-5):
+    """The weight-gradient kernel at the shapes of one dyn_modeling step at
+    256 x 8 (``WGRAD_LAYERS``): against the plain version in float64 on the
+    card (max |kernel - plain| within ``rel`` of max |plain|; cuDNN's
+    deterministic float32 gradient's gap beside it), two launches bit for
+    bit, and a second process's launches bit for bit; timed (kernel, the
+    plain version in float32, cuDNN's deterministic weight gradient as the
+    library call) beside the bound, 2 * M * N * K operations at 67 TFLOP/s;
+    and each layer's three passes under cuDNN's deterministic algorithms,
+    by kernel (a reading: which pass runs which kernels)."""
+    hashes = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.wgrad_hashes()))"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if hashes.returncode != 0:
+        raise AssertionError(f"conv_wgrad second process failed:\n{hashes.stderr[-4000:]}")
+    theirs = json.loads(hashes.stdout.strip().splitlines()[-1])
+    ours = wgrad_hashes()
+    if ours != theirs:
+        raise AssertionError(f"conv_wgrad differs across processes: {ours} vs {theirs}")
+    rows, total = [], {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0}
+    for i, layer in enumerate(WGRAD_LAYERS):
+        name, transposed, *_, s, p, _, n_rows = layer
+        x, dy, w, kx, kdy = wgrad_case(layer, dev, 100 + i)
+        got = kernels._conv_wgrad_cuda(kx, kdy, s, p)
+        again = kernels._conv_wgrad_cuda(kx, kdy, s, p)
+        if not torch.equal(got, again):
+            raise AssertionError(f"conv_wgrad {name} differs between two launches")
+        want = kernels.conv_wgrad_plain(kx.double(), kdy.double(), s, p)
+        scale = float(want.abs().max())
+        err = float((got.double() - want).abs().max()) / scale
+        lib = library_wgrad(layer, x, dy, w)
+        lib_err = float((lib.double() - want).abs().max()) / scale
+        del want, lib
+        if err > rel:
+            raise AssertionError(f"conv_wgrad {name}: max |kernel - float64| / max |float64| "
+                                 f"{err:.3g} > {rel:g} (cuDNN {lib_err:.3g})")
+        m, c = kdy.shape[1], kx.shape[1]
+        k = kdy.shape[0] * kdy.shape[2] * kdy.shape[3]
+        flops = 2 * m * c * 16 * k
+        row = {"layer": name, "rows": n_rows, "M": m, "N": c * 16, "K": k,
+               "splits": kernels.build.load("conv_wgrad").conv_wgrad_f32_splits(m, c * 16, k),
+               "gflop": flops / 1e9, "rel_err": err, "library_rel_err": lib_err,
+               "ms": timer(lambda: kernels._conv_wgrad_cuda(kx, kdy, s, p)),
+               "plain_ms": events_ms(lambda: kernels.conv_wgrad_plain(kx, kdy, s, p)),
+               "library_ms": events_ms(lambda: library_wgrad(layer, x, dy, w)),
+               "bound_ms": bound(0, flops)[0],
+               "passes": conv_pass_split(layer, x, dy, w)}
+        rows.append(row)
+        for key in total:
+            total[key] += row[key] * 2          # two encoders, two decoders
+        say(f"[3/6] conv_wgrad {name} at {n_rows} rows (M {m}, N {c * 16}, K {k}, "
+            f"{row['splits']} splits, {flops / 1e9:.1f} GFLOP): {row['ms']:.4f} ms "
+            f"({row['bound_ms'] / row['ms']:.1%} of bound {row['bound_ms']:.4f} ms), "
+            f"plain {row['plain_ms']:.4f} ms, cuDNN deterministic {row['library_ms']:.4f} ms; "
+            f"rel err vs float64 {err:.3g} (cuDNN {lib_err:.3g}); bit-identical reruns")
+        for pass_name, kernels_ms in row["passes"].items():
+            say(f"    cuDNN deterministic {pass_name}: " + "; ".join(
+                f"{k_name[:90]} {ms:.4f} ms" for k_name, ms in kernels_ms))
+        del x, dy, w, kx, kdy, got, again
+        torch.cuda.empty_cache()
+    say(f"[3/6] conv_wgrad ok, bit-identical across two processes; the 16 weight gradients "
+        f"of a dyn step: {total['ms']:.3f} ms ({total['bound_ms'] / total['ms']:.1%} of "
+        f"bound {total['bound_ms']:.3f} ms), cuDNN deterministic {total['library_ms']:.3f} ms, "
+        f"plain {total['plain_ms']:.3f} ms")
+    return {"name": "conv_wgrad_f32", "route": "cuda",
+            "source": "mmdyn_tpu_torch/ops/csrc/conv_wgrad.cu", "replaces": WGRAD_REPLACES,
+            **total, "layers": rows}
+
+
 def reset_counters(kernels):
     kernels.fused_poe_reparam.launches = 0
     kernels.fused_masked_bce_sum.launches = 0
     kernels.fused_masked_bce_sum.launches_bf16 = 0
+    kernels.conv_wgrad_f32.launches = 0
 
 
 def read_counters(kernels):
@@ -768,11 +960,13 @@ def check_bf16_rounding(cfg, b=32):
 
 
 def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_steps=0,
-             top=40, determinism_rows=()):
+             top=40, determinism_rows=(), wgrad_per_step=16):
     """One path on the card: ``steps`` train steps on one synthetic batch
     (the first also warms up, the others are timed), the kernel counters set
     to 0 just before and read just after and held to ``per_step`` launches
-    per step, losses finite and falling; then ``determinism_reading`` on the
+    per step, and ``conv_wgrad_f32`` to ``wgrad_per_step`` under float32 (two
+    encoders and two decoders of 4 convolutions; none under the bf16
+    policies), losses finite and falling; then ``determinism_reading`` on the
     batch's first rows for each count in ``determinism_rows``; then
     ``profile_steps`` profiled steps. Returns the path's summary for the
     result lines."""
@@ -791,14 +985,17 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (steps - 1)
     launches = read_counters(kernels)
+    wgrad = kernels.conv_wgrad_f32.launches
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: losses not finite and falling: {losses}")
     want = {name: n * steps for name, n in per_step.items()}
     want["bce_sum_bf16"] = want["bce_sum"] if cfg.compute_dtype == "bfloat16_full" else 0
-    if launches != want:
-        raise AssertionError(f"{label}: kernel launches {launches} over {steps} "
-                             f"steps, expected {want}")
+    want_wgrad = wgrad_per_step * steps if cfg.compute_dtype == "float32" else 0
+    if launches != want or wgrad != want_wgrad:
+        raise AssertionError(f"{label}: kernel launches {launches}, conv_wgrad {wgrad} over "
+                             f"{steps} steps, expected {want}, conv_wgrad {want_wgrad}")
+    launches["conv_wgrad_f32"] = wgrad
     dyn = cfg.problem_type == "dyn_modeling"
     frames = cfg.batchsize * (seq_len if dyn else 1)
     say(f"[5/6] {label}: {cfg.model_name} {cfg.input_type}"
@@ -3652,6 +3849,7 @@ def main():
     timer = Timer(dev)
     entries = [check_poe(kernels, recon, timer, dev), check_bce(kernels, timer, dev)]
     entries.append(check_bce_bf16(kernels, timer, dev, entries[1]))
+    entries.append(check_conv_wgrad(kernels, timer, dev))
     one = torch.zeros(1, device=dev)
     say(f"[3/6] timer floor: a one-float zero_() reads {timer(one.zero_):.5f} ms "
         f"(the event pair and one launch)")
@@ -3688,7 +3886,7 @@ def main():
         "dyn_modeling": run_path("(b) dyn_modeling", dyn, kernels, card, mvae_per_step,
                                  seq_len=8, profile_steps=2, top=25),
         "cnn-vae": run_path("(c) cnn-vae", vae, kernels, card,
-                            {"poe_reparam": 0, "bce_sum": 0}),
+                            {"poe_reparam": 0, "bce_sum": 0}, wgrad_per_step=8),
         "seq_bf16_full": run_path("(d) seq flagship", dataclasses.replace(
             flag, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step,
             profile_steps=3, determinism_rows=(512, 128)),
@@ -3712,6 +3910,11 @@ def main():
         refcfg = refcfg_path(card, Path(tmp))
 
     for e in entries:
+        if e["name"] == "conv_wgrad_f32":       # counted in (a)-(e), the step's paths
+            e["launches"] = paths["dyn_modeling"]["launches"][e["name"]]
+            e["launches_by_path"] = {name: p["launches"][e["name"]]
+                                     for name, p in paths.items()}
+            continue
         # the bf16 kernel's main path is (d), the others' (a)
         main = "seq_bf16_full" if e["name"] == "bce_sum_bf16" else "seq_modeling"
         e["launches"] = paths[main]["launches"][e["name"]]

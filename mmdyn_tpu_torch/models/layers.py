@@ -31,7 +31,12 @@ form is here:
 * ``Linear`` / ``Conv2d`` / ``ConvTranspose2d`` — torch's layers under an
   activation policy (``compute_dtype``, JAX ``layers.py:201-227``):
 
-  - ``float32``: torch's own forward, unchanged.
+  - ``float32``: torch's own forward, unchanged. A convolution runs
+    through ``_ConvF32``: torch's forward and data-gradient calls, but the
+    weight gradient of ``ops.kernels.conv_wgrad_f32`` (on the card a
+    hand-written kernel that sums in a fixed order; on the CPU its plain
+    version), whose geometry is the cnn models' (4 x 4 kernels, stride 1 or
+    2, padding 0 or 1): the weight gradient of any other raises.
   - ``bfloat16``: the input and the weight are cast to bf16 for the product
     (the tensor cores accumulate in float32), the output is upcast to
     float32, and the bias is added in float32.
@@ -53,6 +58,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmdyn_tpu_torch.config import BN_EPS
+from mmdyn_tpu_torch.ops.kernels import conv_wgrad_f32
 from mmdyn_tpu_torch.parallel.mesh import active_mesh, global_draw, var_mean
 
 POLICIES = ("float32", "bfloat16", "bfloat16_full")
@@ -217,6 +223,43 @@ class Linear(nn.Linear):
         return _with_bias(uncast(F.linear(xc, wc), self.compute_dtype), self.bias)
 
 
+class _ConvF32(torch.autograd.Function):
+    """A float32 convolution, transposed or not: the forward and the input and
+    bias gradients are the calls autograd makes without it (``F.conv2d`` /
+    ``F.conv_transpose2d``, and ``aten.convolution_backward`` without the
+    weight's output: cuDNN's on the card), the weight gradient is
+    ``conv_wgrad_f32``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, transposed, stride, padding, output_padding,
+                dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (transposed, stride, padding, output_padding, dilation, groups)
+        ctx.bias_sizes = None if bias is None else list(bias.shape)
+        if transposed:
+            return F.conv_transpose2d(x, weight, bias, stride, padding, output_padding,
+                                      groups, dilation)
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        transposed, stride, padding, output_padding, dilation, groups = ctx.conv
+        dx = dw = db = None
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        if need_x or need_b:
+            dx, _, db = torch.ops.aten.convolution_backward(
+                grad, x, weight, ctx.bias_sizes, stride, padding, dilation, transposed,
+                output_padding, groups, (need_x, False, need_b))
+        if need_w:
+            g = grad.contiguous()      # the decoders' last one arrives as an NHWC view
+            # a transposed convolution's weight gradient is the convolution's
+            # with the roles of input and output swapped
+            pair = (g, x) if transposed else (x, g)
+            dw = conv_wgrad_f32(*pair, weight.shape[2:], stride, padding, dilation, groups)
+        return dx, dw, db, None, None, None, None, None, None
+
+
 class Conv2d(nn.Conv2d):
     def __init__(self, *args, compute_dtype: str = "float32", **kwargs):
         super().__init__(*args, **kwargs)
@@ -224,7 +267,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         if self.compute_dtype == "float32":
-            return super().forward(x)
+            return _ConvF32.apply(x, self.weight, self.bias, False, self.stride, self.padding,
+                                  self.output_padding, self.dilation, self.groups)
         xc, wc = cast_compute(x, self.weight, self.compute_dtype)
         y = F.conv2d(xc, wc, None, self.stride, self.padding, self.dilation, self.groups)
         return _with_bias(uncast(y, self.compute_dtype), self.bias, 2)
@@ -237,7 +281,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         if self.compute_dtype == "float32":
-            return super().forward(x)
+            return _ConvF32.apply(x, self.weight, self.bias, True, self.stride, self.padding,
+                                  self.output_padding, self.dilation, self.groups)
         xc, wc = cast_compute(x, self.weight, self.compute_dtype)
         y = F.conv_transpose2d(xc, wc, None, self.stride, self.padding,
                                self.output_padding, self.groups, self.dilation)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("poe_reparam", "bce_sum")
+SOURCES = ("poe_reparam", "bce_sum", "conv_wgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -100,6 +100,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.bce_sum_f32, lib.bce_sum_bf16):
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
             fn.restype = i32
+    elif name == "conv_wgrad":
+        lib.conv_wgrad_f32_splits.argtypes = [i32, i32, i64]
+        lib.conv_wgrad_f32_splits.restype = i32
+        lib.conv_wgrad_f32.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 10 + [ptr]
+        lib.conv_wgrad_f32.restype = i32
     else:
         raise ValueError(f"unknown kernel library {name!r}")
 

@@ -1,5 +1,7 @@
 """The two fused kernels of the subset-ELBO step, each with its plain PyTorch
-version, its ``torch.autograd.Function`` and a launch counter.
+version, its ``torch.autograd.Function`` and a launch counter; and the
+weight gradient of the cnn models' float32 convolutions, with its plain
+version and a launch counter.
 
 ``fused_poe_reparam`` — product-of-experts posterior of all K modality subsets
 plus the reparameterised sample, in one pass.
@@ -53,6 +55,24 @@ Both backward passes are the analytic formulas of the JAX custom VJPs
 (``_bwd``, ``_bce_bwd``), written in torch ops, as the JAX package runs them
 in XLA rather than Pallas.
 
+``conv_wgrad_f32`` — the weight gradient of a float32 convolution with a 4 x 4
+kernel, stride 1 or 2, padding 0 or 1 (every layer of ``models/vae.py``'s
+``conv_trunk`` and ``Decoder.hallucinate``), summed over the batch.
+  * Replaces no TPU kernel (XLA computes the JAX package's convolution
+    gradients); CUDA source ``csrc/conv_wgrad.cu``. Added because the
+    training step runs cuDNN's deterministic algorithms (bit-identical
+    reruns), which leave float32 weight gradients to ``wgrad_alg1`` and FFT.
+  * Bound by FFMA throughput: 2 * M * N * K operations for M = C_out,
+    N = C_in * 16, K = batch * H_out * W_out, in float32 without tensor cores
+    (67 TFLOP/s); 1.29 TFLOP a step of the dyn_modeling cell at 256 x 8.
+  * Design: an implicit GEMM with split-K; each split writes its partial to a
+    workspace and a second kernel sums the partials in a fixed order, so the
+    sum is deterministic without atomics. The split count and the tile follow
+    (M, N, K) alone (``conv_wgrad_f32_splits`` in the source).
+  * ``models/layers.py`` calls it from the backward of the float32 ``Conv2d``
+    and ``ConvTranspose2d``; a transposed convolution passes its output
+    gradient as ``x`` and its input as ``dy``.
+
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises. Each CUDA launch adds one to the wrapper's ``launches``;
 a ``bce_sum`` launch on bf16 logits also to ``launches_bf16``.
@@ -61,6 +81,7 @@ a ``bce_sum`` launch on bf16 logits also to ``launches_bf16``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from mmdyn_tpu_torch.config import POE_EPS
 from mmdyn_tpu_torch.ops import build
@@ -268,3 +289,94 @@ def fused_masked_bce_sum(logits, target, mask=None):
 
 fused_masked_bce_sum.launches = 0
 fused_masked_bce_sum.launches_bf16 = 0     # those of them with bf16 logits
+
+
+# ---------------------------------------------------------------------------
+# weight gradient of the float32 convolutions
+# ---------------------------------------------------------------------------
+
+WGRAD_TAPS = 4              # the kernel's height and width
+
+
+def _square(name, v):
+    """An int, or an (a, a) pair, as an int."""
+    a, b = (v, v) if isinstance(v, int) else tuple(v)
+    _require(a == b, f"{name}: the same on both axes expected, got {v}")
+    return int(a)
+
+
+def _check_wgrad_geometry(kernel_size, stride, padding, dilation=1, groups=1):
+    """(stride, padding) of a convolution ``conv_wgrad_f32`` takes: a 4 x 4
+    kernel, stride 1 or 2, padding 0 or 1, dilation 1, groups 1, the same on
+    both axes; raises on any other."""
+    k = _square("kernel_size", kernel_size)
+    s, p = _square("stride", stride), _square("padding", padding)
+    d = _square("dilation", dilation)
+    _require(k == WGRAD_TAPS, f"conv_wgrad_f32: a {WGRAD_TAPS} x {WGRAD_TAPS} kernel only, "
+             f"got {k}")
+    _require(s in (1, 2) and p in (0, 1),
+             f"conv_wgrad_f32: stride 1 or 2 and padding 0 or 1 only, got {s}, {p}")
+    _require(d == 1 and groups == 1,
+             f"conv_wgrad_f32: dilation 1 and groups 1 only, got {d}, {groups}")
+    return s, p
+
+
+def conv_wgrad_plain(x, dy, stride, padding):
+    """dW[m, c, kh, kw] = sum over (b, oh, ow) of dy[b, m, oh, ow] *
+    x[b, c, oh * stride - padding + kh, ow * stride - padding + kw]: the
+    kernel's implicit GEMM written out, each image's patches of x
+    (``F.unfold``) against its dy in a matmul, summed over the batch in
+    order, in the inputs' dtype."""
+    b, c = x.shape[:2]
+    m = dy.shape[1]
+    cols = F.unfold(x, WGRAD_TAPS, padding=padding, stride=stride)   # (B, C*16, L)
+    d = dy.reshape(b, m, -1)                                          # (B, M, L)
+    dw = torch.zeros((m, cols.shape[1]), dtype=x.dtype, device=x.device)
+    for i in range(b):
+        dw.addmm_(d[i], cols[i].T)
+    return dw.reshape(m, c, WGRAD_TAPS, WGRAD_TAPS)
+
+
+def _conv_wgrad_cuda(x, dy, stride, padding):
+    for name, t in (("x", x), ("dy", dy)):
+        _require_cuda(name, t, x.device)
+    b, c, h, w = x.shape
+    m, ho, wo = dy.shape[1:]
+    n, k = c * WGRAD_TAPS ** 2, b * ho * wo
+    dw = torch.empty((m, c, WGRAD_TAPS, WGRAD_TAPS), device=x.device, dtype=torch.float32)
+    if k == 0 or dw.numel() == 0:
+        return dw.zero_()
+    lib = build.load("conv_wgrad")
+    splits = lib.conv_wgrad_f32_splits(m, n, k)
+    # the kernel's offsets are 32-bit
+    _require(max(x.numel(), dy.numel(), splits * m * n) < 2 ** 31,
+             f"conv_wgrad_f32: x {tuple(x.shape)}, dy {tuple(dy.shape)} and a workspace "
+             f"of {splits} x {m} x {n} must each hold under 2^31 elements")
+    ws = torch.empty((splits, m, n), device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(lib.conv_wgrad_f32(
+        x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dw.data_ptr(), b, c, h, w, m, ho, wo,
+        stride, padding, splits, stream), "conv_wgrad launch")
+    conv_wgrad_f32.launches += 1
+    return dw
+
+
+def conv_wgrad_f32(x, dy, kernel_size, stride, padding, dilation=1, groups=1):
+    """The weight gradient (M, C, 4, 4) of the convolution of x (B, C, H, W)
+    whose output gradient is dy (B, M, H_out, W_out), both NCHW contiguous:
+    the CUDA kernel for float32 CUDA tensors, the plain version for CPU
+    tensors. Raises outside ``_check_wgrad_geometry``'s geometry."""
+    s, p = _check_wgrad_geometry(kernel_size, stride, padding, dilation, groups)
+    _require(x.dim() == 4 and dy.dim() == 4 and x.shape[0] == dy.shape[0],
+             f"x (B, C, H, W) and dy (B, M, H_out, W_out) expected, got "
+             f"{tuple(x.shape)} and {tuple(dy.shape)}")
+    out = tuple((size + 2 * p - WGRAD_TAPS) // s + 1 for size in x.shape[2:])
+    _require(tuple(dy.shape[2:]) == out,
+             f"dy: spatial {out} expected for x {tuple(x.shape)}, got {tuple(dy.shape)}")
+    _require(x.is_contiguous() and dy.is_contiguous(), "x and dy must be contiguous")
+    if _on_cpu(x):
+        return conv_wgrad_plain(x, dy, s, p)
+    return _conv_wgrad_cuda(x, dy, s, p)
+
+
+conv_wgrad_f32.launches = 0
