@@ -36,6 +36,15 @@ Phases, any failure raises and exits non-zero:
    deterministic (the library call, which the port never calls) times
    beside the operation bound; and each layer's forward, data and weight
    gradient under cuDNN's deterministic algorithms by kernel (a reading).
+   BatchNorm + swish (``fused_bn_swish``) at the six site shapes of one
+   dyn_modeling step (the encoders' at 2,048 rows, the decoders' at 8,192
+   in 4 groups): every output (y, the statistics, dx, dweight, dbias)
+   against the plain version in float64 on the card (y and the statistics
+   within 1e-5 of the largest element, the gradients within 1e-4; the
+   float32 plain version's and today's composite's gaps beside them), two
+   launches and a second process bit for bit; the kernels forward +
+   backward, the plain version and today's composite under autograd timed
+   beside the byte bound.
 4. Train steps on the card against the same steps on the CPU (same weights,
    no dropout, loss rel 1e-4 over two steps): the seq flagship at batch 32;
    dyn_modeling at 8 x 4 with ``mask_loss`` (the masked BCE kernel inside a
@@ -57,7 +66,9 @@ Phases, any failure raises and exits non-zero:
    (a) the seq flagship: cnn-mvae, visuotactile + pose, seq_modeling,
        latent 256, float32, batch 512; 5 steps, 1 PoE, 2 BCE and 16
        ``conv_wgrad_f32`` launches each (8 for the cnn-vae of (c), none
-       under ``bfloat16_full``); the determinism reading at batch 512 and 128 (every
+       under ``bfloat16_full``), and 12 ``fused_bn_swish`` calls (6 for
+       (c), none under ``bfloat16_full``); the determinism reading at batch
+       512 and 128 (every
        convolution of one step replayed three times with cuDNN's default
        algorithms and three with its deterministic ones: the outputs that
        differ, by layer family and output, which under the deterministic
@@ -299,7 +310,7 @@ F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 64 << 20       # more than the 50 MB L2
 POE_REPLACES = "mmdyn_tpu/ops/kernels.py:110"   # _poe_reparam_pallas -> _poe_kernel
 BCE_REPLACES = "mmdyn_tpu/ops/kernels.py:247"   # _bce_pallas -> _bce_kernel(_nomask)
-PORT_KERNELS = ("poe_reparam", "bce_partial", "bce_final")   # device kernel names
+PORT_KERNELS = ("poe_reparam", "bce_partial", "bce_final", "bn_swish_")   # device kernel names
 CONV_KERNELS = ("fprop", "dgrad", "wgrad", "fft", "conv", "cgemm")   # by kernel name
 
 
@@ -771,11 +782,160 @@ def check_conv_wgrad(kernels, timer, dev, rel=1e-5):
             **total, "layers": rows}
 
 
+# the BatchNorm + swish sites of one dyn_modeling step at 256 x 8 (2,048
+# rows): each encoder's trunk at 2,048 rows, each decoder's trunk at 8,192 (4
+# subsets, statistics per subset); x 2 encoders, x 2 decoders. (site, shape,
+# groups)
+BN_SWISH_SITES = (
+    ("encoder conv(32, 64) bn + swish", (2048, 64, 16, 16), 1),
+    ("encoder conv(64, 128) bn + swish", (2048, 128, 8, 8), 1),
+    ("encoder conv(128, 256) bn + swish", (2048, 256, 5, 5), 1),
+    ("decoder deconv(256, 128) bn + swish", (8192, 128, 8, 8), 4),
+    ("decoder deconv(128, 64) bn + swish", (8192, 64, 16, 16), 4),
+    ("decoder deconv(64, 32) bn + swish", (8192, 32, 32, 32), 4),
+)
+BN_SWISH_REPLACES = "none (XLA fuses BatchNorm and swish in the JAX package)"
+
+
+def bn_swish_case(site, dev, seed):
+    """x (offset from 0, so the variance is a difference of large sums),
+    weight, bias and the output's gradient of ``site`` on the card, from
+    ``seed``."""
+    _, shape, _ = site
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 3.0 + 2.0 * torch.randn(shape, generator=g, device=dev)
+    c = shape[1]
+    w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    gy = torch.randn(shape, generator=g, device=dev)
+    return x, w, b, gy
+
+
+def bn_swish_kernel(kernels, site, x, w, b, gy):
+    """The kernels' outputs of ``site``: y, mean, var, dx, dweight, dbias."""
+    groups = site[2]
+    y, mean, var, inv = kernels._bn_swish_cuda(x, w, b, groups, 1e-5)
+    return (y, mean, var) + kernels._bn_swish_backward_cuda(gy, x, w, b, mean, inv, groups)
+
+
+def bn_swish_plain(kernels, site, x, w, b, gy):
+    """The plain versions' outputs of ``site`` in x's dtype, as
+    ``bn_swish_kernel`` orders them."""
+    groups = site[2]
+    y, mean, var, inv = kernels.bn_swish_plain(x, w, b, groups)
+    return (y, mean, var) + kernels.bn_swish_backward_plain(gy, x, w, b, mean, inv, groups)
+
+
+def bn_swish_composite(site, x, w, b, gy):
+    """Today's composite of ``site`` without the kernels, differentiated by
+    autograd op by op (``train_batch_norm`` then ``swish``): y, dx, dweight
+    and dbias. A yardstick; the trunks no longer call it."""
+    from mmdyn_tpu_torch.models.layers import swish, train_batch_norm
+
+    groups = site[2]
+    x = x.detach().requires_grad_(True)
+    w, b = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
+    y = swish(train_batch_norm(x, w, b, groups))
+    return (y,) + torch.autograd.grad(y, (x, w, b), gy)
+
+
+def bn_swish_hashes():
+    """sha256 of every output of the kernels at every ``BN_SWISH_SITES``
+    case from its seed; run in a second process by ``check_bn_swish``."""
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    from mmdyn_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    out = []
+    for i, site in enumerate(BN_SWISH_SITES):
+        got = bn_swish_kernel(kernels, site, *bn_swish_case(site, dev, 300 + i))
+        out.append([hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest() for t in got])
+    return out
+
+
+def max_rel_gap(a, b):
+    """max |a - b| / max |b|."""
+    return float((a.detach().double() - b.detach().double()).abs().max()) / max(
+        float(b.detach().abs().max()), 1e-30)
+
+
+def check_bn_swish(kernels, timer, dev, rel=1e-5, grad_rel=1e-4):
+    """BatchNorm + swish at the sites of one dyn_modeling step
+    (``BN_SWISH_SITES``): every output of the kernels against the plain
+    version in float64 on the card (y, mean, var within ``rel`` of the
+    largest element; dx, dweight, dbias within ``grad_rel``; the float32
+    plain version's and today's composite's gaps beside them), two launches
+    bit for bit and a second process bit for bit; timed (the kernels forward
+    and backward, the plain version, today's composite under autograd)
+    beside the byte bound: x read and y written, the gradient and x read and
+    dx written, at 3.35 TB/s."""
+    hashes = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.bn_swish_hashes()))"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if hashes.returncode != 0:
+        raise AssertionError(f"bn_swish second process failed:\n{hashes.stderr[-4000:]}")
+    theirs = json.loads(hashes.stdout.strip().splitlines()[-1])
+    ours = bn_swish_hashes()
+    if ours != theirs:
+        raise AssertionError(f"bn_swish differs across processes: {ours} vs {theirs}")
+    rows, total = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for i, site in enumerate(BN_SWISH_SITES):
+        name, shape, groups = site
+        x, w, b, gy = bn_swish_case(site, dev, 300 + i)
+        got = bn_swish_kernel(kernels, site, x, w, b, gy)
+        again = bn_swish_kernel(kernels, site, x, w, b, gy)
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError(f"bn_swish {name} differs between two launches")
+        want = bn_swish_plain(kernels, site, x.double(), w.double(), b.double(), gy.double())
+        plain = bn_swish_plain(kernels, site, x, w, b, gy)
+        comp = bn_swish_composite(site, x, w, b, gy)
+        keys = ("y", "mean", "var", "dx", "dweight", "dbias")
+        gaps = {k: max_rel_gap(p, q) for k, p, q in zip(keys, got, want)}
+        plain_gaps = {k: max_rel_gap(p, q) for k, p, q in zip(keys, plain, want)}
+        comp_keys = ("y", "dx", "dweight", "dbias")
+        comp_gaps = {k: max_rel_gap(comp[j], want[keys.index(k)]) for j, k in enumerate(comp_keys)}
+        del want, plain, comp
+        for k, gap in gaps.items():
+            if gap > (grad_rel if k.startswith("d") else rel):
+                raise AssertionError(f"bn_swish {name} {k}: max |kernel - float64| / max "
+                                     f"|float64| {gap:.3g} (plain float32 {plain_gaps[k]:.3g})")
+        numel = x.numel()
+        row = {"site": name, "shape": list(shape), "groups": groups, "gaps": gaps,
+               "plain_gaps": plain_gaps, "composite_gaps": comp_gaps,
+               "ms": (timer(lambda: bn_swish_kernel(kernels, site, x, w, b, gy))),
+               "plain_ms": events_ms(lambda: bn_swish_plain(kernels, site, x, w, b, gy)),
+               "library_ms": events_ms(lambda: bn_swish_composite(site, x, w, b, gy)),
+               "bound_ms": bound(5 * 4 * numel, 0)[0]}
+        rows.append(row)
+        for key in total:
+            total[key] += 2 * row[key]          # two encoders, two decoders
+        say(f"[3/6] bn_swish {name} {tuple(shape)} groups {groups}: forward + backward "
+            f"{row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of bound "
+            f"{row['bound_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, today's composite "
+            f"{row['library_ms']:.4f} ms; rel gaps to float64 " + ", ".join(
+                f"{k} {v:.2g} (plain {plain_gaps[k]:.2g}"
+                + (f", composite {comp_gaps[k]:.2g})" if k in comp_gaps else ")")
+                for k, v in gaps.items()) + "; bit-identical reruns")
+        del x, w, b, gy, got, again
+        torch.cuda.empty_cache()
+    say(f"[3/6] bn_swish ok, bit-identical across two processes; the 12 sites of a dyn "
+        f"step forward + backward: {total['ms']:.3f} ms ({total['bound_ms'] / total['ms']:.1%} "
+        f"of bound {total['bound_ms']:.3f} ms), plain {total['plain_ms']:.3f} ms, today's "
+        f"composite {total['library_ms']:.3f} ms")
+    return {"name": "fused_bn_swish", "route": "cuda",
+            "source": "mmdyn_tpu_torch/ops/csrc/bn_swish.cu", "replaces": BN_SWISH_REPLACES,
+            **total, "sites": rows}
+
+
 def reset_counters(kernels):
     kernels.fused_poe_reparam.launches = 0
     kernels.fused_masked_bce_sum.launches = 0
     kernels.fused_masked_bce_sum.launches_bf16 = 0
     kernels.conv_wgrad_f32.launches = 0
+    kernels.fused_bn_swish.launches = 0
 
 
 def read_counters(kernels):
@@ -960,13 +1120,16 @@ def check_bf16_rounding(cfg, b=32):
 
 
 def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_steps=0,
-             top=40, determinism_rows=(), wgrad_per_step=16):
+             top=40, determinism_rows=(), wgrad_per_step=16, bn_swish_per_step=12):
     """One path on the card: ``steps`` train steps on one synthetic batch
     (the first also warms up, the others are timed), the kernel counters set
     to 0 just before and read just after and held to ``per_step`` launches
-    per step, and ``conv_wgrad_f32`` to ``wgrad_per_step`` under float32 (two
+    per step, ``conv_wgrad_f32`` to ``wgrad_per_step`` under float32 (two
     encoders and two decoders of 4 convolutions; none under the bf16
-    policies), losses finite and falling; then ``determinism_reading`` on the
+    policies) and ``fused_bn_swish`` to ``bn_swish_per_step`` under float32
+    activations (3 an encoder, 3 a decoder; none under ``bfloat16_full``),
+    losses finite and falling; then
+    ``determinism_reading`` on the
     batch's first rows for each count in ``determinism_rows``; then
     ``profile_steps`` profiled steps. Returns the path's summary for the
     result lines."""
@@ -986,16 +1149,20 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     step_s = (time.perf_counter() - t0) / (steps - 1)
     launches = read_counters(kernels)
     wgrad = kernels.conv_wgrad_f32.launches
+    bn_swish = kernels.fused_bn_swish.launches
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: losses not finite and falling: {losses}")
     want = {name: n * steps for name, n in per_step.items()}
     want["bce_sum_bf16"] = want["bce_sum"] if cfg.compute_dtype == "bfloat16_full" else 0
     want_wgrad = wgrad_per_step * steps if cfg.compute_dtype == "float32" else 0
-    if launches != want or wgrad != want_wgrad:
-        raise AssertionError(f"{label}: kernel launches {launches}, conv_wgrad {wgrad} over "
-                             f"{steps} steps, expected {want}, conv_wgrad {want_wgrad}")
+    want_bn = bn_swish_per_step * steps if cfg.compute_dtype != "bfloat16_full" else 0
+    if launches != want or wgrad != want_wgrad or bn_swish != want_bn:
+        raise AssertionError(f"{label}: kernel launches {launches}, conv_wgrad {wgrad}, "
+                             f"bn_swish {bn_swish} over {steps} steps, expected "
+                             f"{want}, conv_wgrad {want_wgrad}, bn_swish {want_bn}")
     launches["conv_wgrad_f32"] = wgrad
+    launches["fused_bn_swish"] = bn_swish
     dyn = cfg.problem_type == "dyn_modeling"
     frames = cfg.batchsize * (seq_len if dyn else 1)
     say(f"[5/6] {label}: {cfg.model_name} {cfg.input_type}"
@@ -3850,6 +4017,7 @@ def main():
     entries = [check_poe(kernels, recon, timer, dev), check_bce(kernels, timer, dev)]
     entries.append(check_bce_bf16(kernels, timer, dev, entries[1]))
     entries.append(check_conv_wgrad(kernels, timer, dev))
+    entries.append(check_bn_swish(kernels, timer, dev))
     one = torch.zeros(1, device=dev)
     say(f"[3/6] timer floor: a one-float zero_() reads {timer(one.zero_):.5f} ms "
         f"(the event pair and one launch)")
@@ -3886,7 +4054,8 @@ def main():
         "dyn_modeling": run_path("(b) dyn_modeling", dyn, kernels, card, mvae_per_step,
                                  seq_len=8, profile_steps=2, top=25),
         "cnn-vae": run_path("(c) cnn-vae", vae, kernels, card,
-                            {"poe_reparam": 0, "bce_sum": 0}, wgrad_per_step=8),
+                            {"poe_reparam": 0, "bce_sum": 0}, wgrad_per_step=8,
+                            bn_swish_per_step=6),
         "seq_bf16_full": run_path("(d) seq flagship", dataclasses.replace(
             flag, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step,
             profile_steps=3, determinism_rows=(512, 128)),
@@ -3910,7 +4079,7 @@ def main():
         refcfg = refcfg_path(card, Path(tmp))
 
     for e in entries:
-        if e["name"] == "conv_wgrad_f32":       # counted in (a)-(e), the step's paths
+        if e["name"] in ("conv_wgrad_f32", "fused_bn_swish"):   # counted in (a)-(e)
             e["launches"] = paths["dyn_modeling"]["launches"][e["name"]]
             e["launches_by_path"] = {name: p["launches"][e["name"]]
                                      for name, p in paths.items()}

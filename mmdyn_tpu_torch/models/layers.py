@@ -20,6 +20,12 @@ form is here:
   not persistent, so a trained ``state_dict`` loads strictly into a model of
   any mode; ``bn_stats`` / ``load_bn_stats`` move them as a dict keyed by
   module name, as the JAX ``bn_stats`` collection does.
+* ``run_sequential`` — a trunk's ``nn.Sequential`` with each BatchNorm +
+  swish pair run as one ``ops.kernels.fused_bn_swish`` call (on the card a
+  hand-written kernel; on the CPU its plain version) and each lone swish as
+  ``F.silu``, for float32 activations (a pair in mode ``batch`` or
+  ``collect``) outside a multi-rank mesh; ``bfloat16_full``, ``frozen`` and
+  the mesh's all-reduced statistics keep the modules' own calls.
 * ``dropout`` — inverted dropout drawing its mask from an explicit
   ``torch.Generator``.
 * Data parallelism: inside ``parallel.sharded(mesh)`` over more than one
@@ -58,7 +64,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmdyn_tpu_torch.config import BN_EPS
-from mmdyn_tpu_torch.ops.kernels import conv_wgrad_f32
+from mmdyn_tpu_torch.ops.kernels import conv_wgrad_f32, fused_bn_swish
 from mmdyn_tpu_torch.parallel.mesh import active_mesh, global_draw, var_mean
 
 POLICIES = ("float32", "bfloat16", "bfloat16_full")
@@ -157,17 +163,69 @@ class TrainBatchNorm(nn.Module):
         if self.mode == "frozen":      # per-example: ``groups`` has no effect
             return frozen_batch_norm(x, self.mean, self.var, self.weight, self.bias,
                                      self.eps)
-        if self.mode == "collect":
-            if groups != 1:
-                raise ValueError("a collect pass takes one group of statistics")
-            mesh = active_mesh()
-            if mesh is None:
-                var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), correction=0)
-            else:
-                var, mean = var_mean(x.detach().float(), (0, 2, 3), mesh, keepdim=False)
-            self.mean.copy_(mean)
-            self.var.copy_(var)
+        self._collect(x, groups)
         return train_batch_norm(x, self.weight, self.bias, groups, self.eps)
+
+    def forward_swish(self, x, groups: int = 1):
+        """swish(self(x, groups)) as one ``fused_bn_swish`` call, for a
+        float32 ``x`` outside a multi-rank mesh in mode ``batch`` or
+        ``collect`` (``fusable``)."""
+        self._collect(x, groups)
+        return fused_bn_swish(x, self.weight, self.bias, groups, self.eps)
+
+    def fusable(self, x) -> bool:
+        return self.mode != "frozen" and _fusable(x)
+
+    def _collect(self, x, groups):
+        """In mode ``collect``, record the batch statistics in the buffers."""
+        if self.mode != "collect":
+            return
+        if groups != 1:
+            raise ValueError("a collect pass takes one group of statistics")
+        mesh = active_mesh()
+        if mesh is None:
+            var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), correction=0)
+        else:
+            var, mean = var_mean(x.detach().float(), (0, 2, 3), mesh, keepdim=False)
+        self.mean.copy_(mean)
+        self.var.copy_(var)
+
+
+def _fusable(x) -> bool:
+    """Whether BatchNorm + swish of ``x`` takes the fused kernel, and swish
+    ``F.silu``: float32 activations (not ``bfloat16_full``'s bf16), outside a
+    mesh of more than one rank, whose statistics need the ranks' all-reduce.
+    A ``torch.export`` or ``torch.compile`` trace records the kernel's custom
+    operator."""
+    return x.dtype == torch.float32 and active_mesh() is None
+
+
+def run_sequential(seq: nn.Sequential, h, groups: int = 1):
+    """``seq`` applied to ``h``, its children called in order as the
+    ``Sequential`` would, except that a ``TrainBatchNorm`` followed by a
+    ``Swish`` runs as one ``fused_bn_swish`` where ``TrainBatchNorm.fusable``
+    allows (else the pair as two module calls), and a lone ``Swish`` as
+    ``F.silu`` where ``_fusable`` allows; each BatchNorm takes
+    ``groups``. The children, their indices and the ``state_dict`` stay as
+    they are."""
+    layers = list(seq)
+    i = 0
+    while i < len(layers):
+        layer = layers[i]
+        pair = (isinstance(layer, TrainBatchNorm) and i + 1 < len(layers)
+                and isinstance(layers[i + 1], Swish))
+        if pair and layer.fusable(h):
+            h = layer.forward_swish(h, groups)
+        elif pair:
+            h = layers[i + 1](layer(h, groups))
+        elif isinstance(layer, TrainBatchNorm):
+            h = layer(h, groups)
+        elif isinstance(layer, Swish) and _fusable(h):
+            h = F.silu(h)
+        else:
+            h = layer(h)
+        i += 2 if pair else 1
+    return h
 
 
 def bn_stats(model: nn.Module) -> dict:

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from mmdyn_tpu_torch.config import DROPOUT_RATE
-from mmdyn_tpu_torch.models.layers import Linear, Swish, dropout
+from mmdyn_tpu_torch.models.layers import Linear, Swish, dropout, run_sequential
 from mmdyn_tpu_torch.models.vae import BOTTLENECK, condition_width, conv_trunk
 
 
@@ -44,8 +44,8 @@ class Regressor(nn.Module):
     def forward(self, x, c=None, generator=None):
         """NHWC images (B, 64, 64, 3) and an optional (B, S) or (B,)
         condition -> (B, out_dim)."""
-        h = self.conv_net(x.permute(0, 3, 1, 2).contiguous())  # NHWC -> NCHW
-        h = dropout(self.fc_net(h.flatten(1)), self.dropout_rate, generator)
+        h = run_sequential(self.conv_net, x.permute(0, 3, 1, 2).contiguous())  # NCHW
+        h = dropout(run_sequential(self.fc_net, h.flatten(1)), self.dropout_rate, generator)
         # the condition joins only when given (regressor.py:52-55)
         if self.conditional and c is not None:
             if c.dim() == 1:

@@ -36,6 +36,9 @@ Randomness: dropout masks and reparameterisation noise come from an explicit
 Serving: ``bn_mode`` is the mode of every BatchNorm (``batch``, ``collect``
 or ``frozen``, ``models/layers.py``), as the JAX modules' ``bn_mode`` field.
 
+The cnn trunks run through ``models/layers.py::run_sequential``: each
+BatchNorm + Swish pair is one fused call, each lone Swish ``F.silu``.
+
 Precision: ``compute_dtype`` is the activation policy of every conv and
 Linear (``models/layers.py``). The encoder heads return float32 under every
 policy, so PoE, reparameterisation and KL run in float32 (JAX vae.py:120-122).
@@ -54,7 +57,7 @@ import torch.nn as nn
 
 from mmdyn_tpu_torch.config import DROPOUT_RATE
 from mmdyn_tpu_torch.models.layers import (Conv2d, ConvTranspose2d, Linear, Mlp, Swish,
-                                           TrainBatchNorm, dropout)
+                                           TrainBatchNorm, dropout, run_sequential)
 from mmdyn_tpu_torch.ops.poe import prior_expert, product_of_experts, reparametrize
 
 BOTTLENECK = (256, 5, 5)   # (C, H, W) between the conv trunks and the FCs
@@ -133,8 +136,8 @@ class Encoder(nn.Module):
 
     def forward(self, x, c=None, generator=None):
         if self.architecture == "cnn":
-            h = self.conv_net(x.permute(0, 3, 1, 2).contiguous())  # NHWC -> NCHW
-            h = self.fc_net(h.flatten(1))                           # NCHW flatten
+            h = run_sequential(self.conv_net, x.permute(0, 3, 1, 2).contiguous())  # NCHW
+            h = run_sequential(self.fc_net, h.flatten(1))                     # NCHW flatten
             h = dropout(h, self.dropout_rate, generator)
         else:
             h = self.fc_net(x.reshape(x.shape[0], -1))
@@ -187,9 +190,8 @@ class Decoder(nn.Module):
             return self.deconv_net(z).float()
         lead = z.shape[:-1]
         groups = math.prod(lead[:-1])
-        h = self.upsample(z.reshape(-1, z.shape[-1])).reshape(-1, *BOTTLENECK)
-        for layer in self.hallucinate:
-            h = layer(h, groups) if isinstance(layer, TrainBatchNorm) else layer(h)
+        h = run_sequential(self.upsample, z.reshape(-1, z.shape[-1])).reshape(-1, *BOTTLENECK)
+        h = run_sequential(self.hallucinate, h, groups)
         return h.reshape(*lead, *h.shape[1:]).movedim(-3, -1)      # NCHW -> NHWC
 
 

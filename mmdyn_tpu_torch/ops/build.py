@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("poe_reparam", "bce_sum", "conv_wgrad")
+SOURCES = ("poe_reparam", "bce_sum", "conv_wgrad", "bn_swish")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -105,6 +105,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv_wgrad_f32_splits.restype = i32
         lib.conv_wgrad_f32.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 10 + [ptr]
         lib.conv_wgrad_f32.restype = i32
+    elif name == "bn_swish":
+        lib.bn_swish_pieces.argtypes = [i32, i32]
+        lib.bn_swish_pieces.restype = i32
+        lib.bn_swish_forward.argtypes = [ptr] * 8 + [i32] * 4 + [f32, ptr]
+        lib.bn_swish_forward.restype = i32
+        lib.bn_swish_backward.argtypes = [ptr] * 11 + [i32] * 4 + [ptr]
+        lib.bn_swish_backward.restype = i32
     else:
         raise ValueError(f"unknown kernel library {name!r}")
 

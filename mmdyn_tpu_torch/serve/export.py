@@ -11,9 +11,12 @@ size into a self-contained directory:
                     on, config provenance
 
 ``load_exported`` runs it with no model code and no checkpoint machinery:
-only torch and the serialized program. A ``sample`` artifact takes its
-noise as an input (the posterior's shape), never a generator. The program
-runs on the device type it was exported on (``manifest["platforms"]``).
+only torch, the serialized program and the port's custom operators
+(``ops/kernels.py`` registers them: a model in BatchNorm mode ``batch``
+exports each BatchNorm + swish as ``mmdyn::bn_swish``). A ``sample``
+artifact takes its noise as an input (the posterior's shape), never a
+generator. The program runs on the device type it was exported on
+(``manifest["platforms"]``).
 
 A session of a group of ranks exports a one-device program, as the JAX
 package lowers its meshed session with unsharded specs: rank 0 exports a
@@ -30,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mmdyn_tpu_torch.ops import kernels  # noqa: F401  (registers the mmdyn:: operators)
 from mmdyn_tpu_torch.parallel.mesh import broadcast_object
 from mmdyn_tpu_torch.serve.session import (IMAGE_SHAPE, POSE_DIM, InferenceSession,
                                            posterior_rows)
