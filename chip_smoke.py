@@ -36,6 +36,16 @@ Phases, any failure raises and exits non-zero:
    deterministic (the library call, which the port never calls) times
    beside the operation bound; and each layer's forward, data and weight
    gradient under cuDNN's deterministic algorithms by kernel (a reading).
+   The float32 convolutions' data gradient (``conv_dgrad_f32``): 16 small
+   geometries that take each of its paths (ragged batches, odd sides) against
+   the plain version in float64 (rel 1e-5), a row alone equal to the same row
+   in the batch; then the 14 calls of one dyn_modeling step at 256 x 8 (the
+   encoders' layers 2-4 at 2,048 rows, the decoders' four transposed-
+   convolution forwards at 8,192) against float64 (rel 1e-5; cuDNN's
+   deterministic call's gap beside it), two launches and a second process
+   bit for bit, rows 0, 0-16, 0-63 and 40 computed alone equal to the same
+   rows in the batch; kernel (L2 flushed), plain-version and cuDNN
+   deterministic times beside the operation bound.
    BatchNorm + swish (``fused_bn_swish``) at the six site shapes of one
    dyn_modeling step (the encoders' at 2,048 rows, the decoders' at 8,192
    in 4 groups): every output (y, the statistics, dx, dweight, dbias)
@@ -64,10 +74,11 @@ Phases, any failure raises and exits non-zero:
    counters set to 0 just before and read just after; losses finite and
    falling:
    (a) the seq flagship: cnn-mvae, visuotactile + pose, seq_modeling,
-       latent 256, float32, batch 512; 5 steps, 1 PoE, 2 BCE and 16
-       ``conv_wgrad_f32`` launches each (8 for the cnn-vae of (c), none
-       under ``bfloat16_full``), and 12 ``fused_bn_swish`` calls (6 for
-       (c), none under ``bfloat16_full``); the determinism reading at batch
+       latent 256, float32, batch 512; 5 steps, 1 PoE, 2 BCE, 16
+       ``conv_wgrad_f32`` and 14 ``conv_dgrad_f32`` launches each (8 and 7
+       for the cnn-vae of (c), none under ``bfloat16_full``), and 12
+       ``fused_bn_swish`` calls (6 for (c), none under ``bfloat16_full``);
+       the determinism reading at batch
        512 and 128 (every
        convolution of one step replayed three times with cuDNN's default
        algorithms and three with its deterministic ones: the outputs that
@@ -102,8 +113,9 @@ Phases, any failure raises and exits non-zero:
        that run continued with ``--resume`` to 2, whose parameters must
        equal the uninterrupted ones bit for bit. Then ``cli.evaluate.main``
        on the run when Pillow imports.
-   (g) serving (``mmdyn_tpu_torch.serve``) of (f)'s first run, no kernel
-       launch (the JAX session has no kernel on this path either), no
+   (g) serving (``mmdyn_tpu_torch.serve``) of (f)'s first run, no PoE or
+       BCE launch (the JAX session has no kernel on this path either; the
+       decoders' transposed convolutions are ``conv_dgrad_f32``), no
        Pillow: ``InferenceSession.from_run`` on the card against the same
        run on the CPU at batch 32 (probabilities atol 1e-4; mu, logvar and
        pose max gap over max |cpu| 1e-4; uint8 images at most 1 apart on at
@@ -114,7 +126,8 @@ Phases, any failure raises and exits non-zero:
        session's graph with live dropout; ``rollout`` of 16 steps at batch
        64; ``freeze_bn`` on 256 rows, a row served alone (padded to 64)
        equal to the same row inside a batch of 64 bit for bit;
-       ``export_session`` / ``load_exported`` at batch 64 (atol 1e-5); the
+       ``export_session`` / ``load_exported`` at batch 64, equal to
+       ``predict`` bit for bit, its call launching ``conv_dgrad_f32``; the
        HTTP server on port 0 (/healthz, /predict at batch 1 and 64 timed,
        /rollout, /sample, and 8 concurrent clients through the micro-batcher
        on the frozen session, equal to their solo replies bit for bit); and
@@ -310,7 +323,8 @@ F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 64 << 20       # more than the 50 MB L2
 POE_REPLACES = "mmdyn_tpu/ops/kernels.py:110"   # _poe_reparam_pallas -> _poe_kernel
 BCE_REPLACES = "mmdyn_tpu/ops/kernels.py:247"   # _bce_pallas -> _bce_kernel(_nomask)
-PORT_KERNELS = ("poe_reparam", "bce_partial", "bce_final", "bn_swish_")   # device kernel names
+PORT_KERNELS = ("poe_reparam", "bce_partial", "bce_final", "bn_swish_",   # device kernel names
+                "::dgrad_")
 CONV_KERNELS = ("fprop", "dgrad", "wgrad", "fft", "conv", "cgemm")   # by kernel name
 
 
@@ -782,6 +796,175 @@ def check_conv_wgrad(kernels, timer, dev, rel=1e-5):
             **total, "layers": rows}
 
 
+# the data gradients of one dyn_modeling step at 256 x 8 (2,048 rows): the
+# encoders' layers 2-4 at 2,048 rows (the first layer's input is data) and the
+# decoders' four transposed-convolution forwards at 8,192 (4 subsets in one
+# call); x 2 encoders, x 2 decoders: 14 calls. WGRAD_LAYERS' tuples
+DGRAD_CALLS = WGRAD_LAYERS[1:]
+DGRAD_REPLACES = "none (XLA computes the JAX package's data gradients)"
+DGRAD_ROWS = (1, 17, 64)        # row alone against in a batch
+# (C_dy, C_x, stride, padding, dX side, batch): each path of conv_dgrad.cu on
+# small shapes, ragged batches and odd sides: the stride-1 GEMM with tap sums
+# (dY planes of 25, 25, 64), the implicit GEMM at stride 1 (planes over 128)
+# and 2 with each tile, and at 3 or 4 channels of dX (a weight over 48 KB),
+# and the direct kernel
+DGRAD_GEOMETRIES = (
+    (256, 128, 1, 0, 8, 7), (64, 16, 1, 1, 6, 3), (32, 8, 1, 0, 11, 2),
+    (16, 128, 1, 0, 15, 2), (16, 64, 1, 1, 14, 3), (16, 32, 1, 0, 16, 2), (16, 3, 1, 1, 13, 2),
+    (64, 128, 2, 1, 16, 3), (32, 64, 2, 0, 15, 2), (16, 32, 2, 1, 9, 5),
+    (300, 3, 2, 1, 10, 2), (512, 4, 2, 0, 9, 1),
+    (32, 3, 2, 1, 64, 3), (8, 1, 2, 0, 7, 2), (16, 2, 2, 1, 5, 4), (5, 4, 2, 1, 12, 1),
+)
+
+
+def check_dgrad_geometries(kernels, dev, rel=1e-5):
+    """Every ``DGRAD_GEOMETRIES`` case against the plain version in float64
+    (max gap within ``rel`` of the largest element), its first row alone
+    equal to the same row in the batch; returns the worst gap."""
+    worst = 0.0
+    for i, (m, c, s, p, side, batch) in enumerate(DGRAD_GEOMETRIES):
+        g = torch.Generator(device=dev).manual_seed(400 + i)
+        out = (side + 2 * p - 4) // s + 1
+        dy = torch.randn((batch, m, out, out), generator=g, device=dev)
+        w = torch.randn((m, c, 4, 4), generator=g, device=dev)
+        got = kernels._conv_dgrad_cuda(dy, w, (side, side), s, p)
+        want = kernels.conv_dgrad_plain(dy.double(), w.double(), (side, side), s, p)
+        err = float((got.double() - want).abs().max()) / float(want.abs().max())
+        alone = kernels._conv_dgrad_cuda(dy[:1].contiguous(), w, (side, side), s, p)
+        if err > rel or not torch.equal(alone, got[:1]):
+            raise AssertionError(f"conv_dgrad (C_dy {m}, C_x {c}, stride {s}, padding {p}, "
+                                 f"side {side}, batch {batch}): rel err {err:.3g}, row alone "
+                                 f"equal {torch.equal(alone, got[:1])}")
+        worst = max(worst, err)
+    say(f"[3/6] conv_dgrad on {len(DGRAD_GEOMETRIES)} small geometries (every path): max rel "
+        f"err vs float64 {worst:.3g}, rows alone == in the batch")
+    return worst
+
+
+def dgrad_case(layer, dev, seed):
+    """(dy, weight, dX's (H, W)) of the layer's data-gradient call on the card,
+    drawn from ``seed``: a convolution's output gradient, or a transposed
+    convolution's input, and its weight."""
+    _, transposed, c_in, c_out, s, p, side, rows = layer
+    out = (side - 1) * s - 2 * p + 4 if transposed else (side + 2 * p - 4) // s + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dy_c, dy_side, x_c, x_side = (c_in, side, c_out, out) if transposed else (c_out, out, c_in,
+                                                                               side)
+    dy = torch.randn((rows, dy_c, dy_side, dy_side), generator=g, device=dev)
+    w = torch.randn((dy_c, x_c, 4, 4), generator=g, device=dev) / math.sqrt(dy_c * 16)
+    return dy, w, (x_side, x_side)
+
+
+def dgrad_hashes():
+    """The kernel's data gradient of every ``DGRAD_CALLS`` case from its
+    seed, as sha256 of its bytes; run in a second process by
+    ``check_conv_dgrad``."""
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    from mmdyn_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    out = []
+    for i, layer in enumerate(DGRAD_CALLS):
+        dy, w, size = dgrad_case(layer, dev, 200 + i)
+        dx = kernels._conv_dgrad_cuda(dy, w, size, layer[4], layer[5])
+        out.append(hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest())
+    return out
+
+
+def library_dgrad(layer, dy, w, size):
+    """cuDNN's deterministic call for the layer's data gradient, as the step
+    made it before the kernel: a convolution's input gradient
+    (``aten.convolution_backward`` for the input alone), a transposed
+    convolution's forward. A yardstick, which the port never calls."""
+    import torch.nn.functional as F
+
+    _, transposed, *_ = layer
+    s, p = layer[4], layer[5]
+    with deterministic_cudnn(True):
+        if transposed:
+            return F.conv_transpose2d(dy, w, None, s, p)
+        x = torch.empty((dy.shape[0], w.shape[1], *size), device=dy.device)
+        return torch.ops.aten.convolution_backward(
+            dy, x, w, None, [s, s], [p, p], [1, 1], False, [0, 0], 1, (True, False, False))[0]
+
+
+def check_conv_dgrad(kernels, timer, dev, rel=1e-5):
+    """The data-gradient kernel at the 14 calls of one dyn_modeling step at
+    256 x 8 (``DGRAD_CALLS``, each twice): against the plain version in
+    float64 on the card (max |kernel - plain| within ``rel`` of max |plain|;
+    cuDNN's deterministic float32 call's gap beside it), two launches bit for
+    bit, a second process's launches bit for bit, and the first rows of each
+    batch computed alone and in batches of ``DGRAD_ROWS`` bit for bit (and
+    ``check_dgrad_geometries``);
+    timed (kernel, the plain version in float32, cuDNN's deterministic call
+    as the library call) beside the bound, 2 * B * C_dy * H_dy * W_dy * C_x
+    * 16 operations at 67 TFLOP/s."""
+    hashes = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.dgrad_hashes()))"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if hashes.returncode != 0:
+        raise AssertionError(f"conv_dgrad second process failed:\n{hashes.stderr[-4000:]}")
+    theirs = json.loads(hashes.stdout.strip().splitlines()[-1])
+    ours = dgrad_hashes()
+    if ours != theirs:
+        raise AssertionError(f"conv_dgrad differs across processes: {ours} vs {theirs}")
+    geometries_err = check_dgrad_geometries(kernels, dev, rel)
+    rows, total = [], {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0}
+    for i, layer in enumerate(DGRAD_CALLS):
+        name, transposed, *_, s, p, _, n_rows = layer
+        dy, w, size = dgrad_case(layer, dev, 200 + i)
+        call = lambda d: kernels._conv_dgrad_cuda(d, w, size, s, p)  # noqa: E731
+        got, again = call(dy), call(dy)
+        if not torch.equal(got, again):
+            raise AssertionError(f"conv_dgrad {name} differs between two launches")
+        for b in DGRAD_ROWS:
+            if not torch.equal(call(dy[:b].contiguous()), got[:b]):
+                raise AssertionError(f"conv_dgrad {name}: rows 0-{b - 1} alone differ from "
+                                     f"the same rows in the batch of {n_rows}")
+        if not torch.equal(call(dy[40:41].contiguous()), got[40:41]):
+            raise AssertionError(f"conv_dgrad {name}: row 40 alone differs from the batch")
+        want = kernels.conv_dgrad_plain(dy.double(), w.double(), size, s, p)
+        scale = float(want.abs().max())
+        err = float((got.double() - want).abs().max()) / scale
+        lib = library_dgrad(layer, dy, w, size)
+        lib_err = float((lib.double() - want).abs().max()) / scale
+        del want, lib
+        if err > rel:
+            raise AssertionError(f"conv_dgrad {name}: max |kernel - float64| / max |float64| "
+                                 f"{err:.3g} > {rel:g} (cuDNN {lib_err:.3g})")
+        m_dy, c = w.shape[:2]
+        taps = 16 if s == 1 else 4
+        flops = 2 * dy.numel() * c * 16
+        row = {"layer": name, "transposed": transposed, "rows": n_rows, "M": c,
+               "N": got[:, 0].numel() // (1 if s == 1 else 4), "K": m_dy * taps,
+               "gflop": flops / 1e9, "rel_err": err, "library_rel_err": lib_err,
+               "ms": timer(lambda: call(dy)),
+               "plain_ms": events_ms(lambda: kernels.conv_dgrad_plain(dy, w, size, s, p)),
+               "library_ms": events_ms(lambda: library_dgrad(layer, dy, w, size)),
+               "bound_ms": bound(0, flops)[0]}
+        rows.append(row)
+        for key in total:
+            total[key] += row[key] * 2          # two encoders, two decoders
+        say(f"[3/6] conv_dgrad {name} {'forward' if transposed else 'data gradient'} at "
+            f"{n_rows} rows (M {c}, N {row['N']}, K {row['K']}, {flops / 1e9:.1f} GFLOP): "
+            f"{row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of bound "
+            f"{row['bound_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, cuDNN deterministic "
+            f"{row['library_ms']:.4f} ms; rel err vs float64 {err:.3g} (cuDNN {lib_err:.3g}); "
+            f"bit-identical reruns, rows alone == in batches of {DGRAD_ROWS}")
+        del dy, w, got, again
+        torch.cuda.empty_cache()
+    say(f"[3/6] conv_dgrad ok, bit-identical across two processes; the 14 data gradients "
+        f"of a dyn step: {total['ms']:.3f} ms ({total['bound_ms'] / total['ms']:.1%} of "
+        f"bound {total['bound_ms']:.3f} ms), cuDNN deterministic {total['library_ms']:.3f} ms, "
+        f"plain {total['plain_ms']:.3f} ms")
+    return {"name": "conv_dgrad_f32", "route": "cuda",
+            "source": "mmdyn_tpu_torch/ops/csrc/conv_dgrad.cu", "replaces": DGRAD_REPLACES,
+            **total, "layers": rows, "geometries_rel_err": geometries_err}
+
+
 # the BatchNorm + swish sites of one dyn_modeling step at 256 x 8 (2,048
 # rows): each encoder's trunk at 2,048 rows, each decoder's trunk at 8,192 (4
 # subsets, statistics per subset); x 2 encoders, x 2 decoders. (site, shape,
@@ -935,6 +1118,7 @@ def reset_counters(kernels):
     kernels.fused_masked_bce_sum.launches = 0
     kernels.fused_masked_bce_sum.launches_bf16 = 0
     kernels.conv_wgrad_f32.launches = 0
+    kernels.conv_dgrad_f32.launches = 0
     kernels.fused_bn_swish.launches = 0
 
 
@@ -1120,13 +1304,16 @@ def check_bf16_rounding(cfg, b=32):
 
 
 def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_steps=0,
-             top=40, determinism_rows=(), wgrad_per_step=16, bn_swish_per_step=12):
+             top=40, determinism_rows=(), wgrad_per_step=16, dgrad_per_step=14,
+             bn_swish_per_step=12):
     """One path on the card: ``steps`` train steps on one synthetic batch
     (the first also warms up, the others are timed), the kernel counters set
     to 0 just before and read just after and held to ``per_step`` launches
     per step, ``conv_wgrad_f32`` to ``wgrad_per_step`` under float32 (two
     encoders and two decoders of 4 convolutions; none under the bf16
-    policies) and ``fused_bn_swish`` to ``bn_swish_per_step`` under float32
+    policies), ``conv_dgrad_f32`` to ``dgrad_per_step`` under float32 (3 an
+    encoder, 4 a decoder; none under the bf16 policies) and
+    ``fused_bn_swish`` to ``bn_swish_per_step`` under float32
     activations (3 an encoder, 3 a decoder; none under ``bfloat16_full``),
     losses finite and falling; then
     ``determinism_reading`` on the
@@ -1149,6 +1336,7 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     step_s = (time.perf_counter() - t0) / (steps - 1)
     launches = read_counters(kernels)
     wgrad = kernels.conv_wgrad_f32.launches
+    dgrad = kernels.conv_dgrad_f32.launches
     bn_swish = kernels.fused_bn_swish.launches
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
@@ -1156,12 +1344,16 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     want = {name: n * steps for name, n in per_step.items()}
     want["bce_sum_bf16"] = want["bce_sum"] if cfg.compute_dtype == "bfloat16_full" else 0
     want_wgrad = wgrad_per_step * steps if cfg.compute_dtype == "float32" else 0
+    want_dgrad = dgrad_per_step * steps if cfg.compute_dtype == "float32" else 0
     want_bn = bn_swish_per_step * steps if cfg.compute_dtype != "bfloat16_full" else 0
-    if launches != want or wgrad != want_wgrad or bn_swish != want_bn:
+    if (launches != want or wgrad != want_wgrad or dgrad != want_dgrad
+            or bn_swish != want_bn):
         raise AssertionError(f"{label}: kernel launches {launches}, conv_wgrad {wgrad}, "
-                             f"bn_swish {bn_swish} over {steps} steps, expected "
-                             f"{want}, conv_wgrad {want_wgrad}, bn_swish {want_bn}")
+                             f"conv_dgrad {dgrad}, bn_swish {bn_swish} over {steps} steps, "
+                             f"expected {want}, conv_wgrad {want_wgrad}, conv_dgrad "
+                             f"{want_dgrad}, bn_swish {want_bn}")
     launches["conv_wgrad_f32"] = wgrad
+    launches["conv_dgrad_f32"] = dgrad
     launches["fused_bn_swish"] = bn_swish
     dyn = cfg.problem_type == "dyn_modeling"
     frames = cfg.batchsize * (seq_len if dyn else 1)
@@ -1829,8 +2021,10 @@ def check_http(session, frozen, x):
 def serve_path(kernels, card, tmp):
     """(g): serving the run (f) trained, ``tmp / "run"`` (cnn-mvae,
     visuotactile + pose, latent 256, float32), with the kernel counters set
-    to 0 just before and read just after: every counter must read 0, as the
-    JAX session fuses with the plain product of experts and has no loss."""
+    to 0 just before and read just after: the PoE and BCE counters must read
+    0, as the JAX session fuses with the plain product of experts and has no
+    loss. The decoders' transposed convolutions run ``conv_dgrad_f32``, in
+    the exported artifact too, which must equal ``predict`` bit for bit."""
     from mmdyn_tpu_torch.cli import infer as cli_infer
     from mmdyn_tpu_torch.serve import InferenceSession, export_session, load_exported
 
@@ -1871,13 +2065,17 @@ def serve_path(kernels, card, tmp):
     manifest = export_session(session, tmp / "artifact", batch_size=64,
                               modalities=tuple(sorted(x)))
     export_s = time.perf_counter() - t0
+    before = kernels.conv_dgrad_f32.launches
     art = load_exported(tmp / "artifact")(**x64)
+    art_dgrad = kernels.conv_dgrad_f32.launches - before
     live = session.predict(**x64)
     export_gap = max(float((art[k] - live[k]).abs().max()) for k in manifest["outputs"])
-    if manifest["platforms"] != [session.device.type] or export_gap > 1e-5:
-        raise AssertionError(f"(g) export: {manifest['platforms']}, gap {export_gap!r}")
+    if manifest["platforms"] != [session.device.type] or export_gap != 0.0 or not art_dgrad:
+        raise AssertionError(f"(g) export: {manifest['platforms']}, gap {export_gap!r}, "
+                             f"conv_dgrad launches {art_dgrad}")
     say(f"[5/6] (g) export_session at batch 64 in {export_s:.2f} s; load_exported's "
-        f"outputs {manifest['outputs']} match predict's, max gap {export_gap!r} (atol 1e-5)")
+        f"outputs {manifest['outputs']} equal predict's bit for bit; the artifact's call "
+        f"launched conv_dgrad {art_dgrad} times")
 
     http = check_http(session, frozen, x)
     cli = cli_infer.main(["--run", str(run), "--export", str(tmp / "cli_artifact")])
@@ -1892,6 +2090,7 @@ def serve_path(kernels, card, tmp):
     torch.cuda.empty_cache()
     return {"predict": table, "rollout_ms_per_step": rollout_ms, "http": http,
             "card_vs_cpu": worst, "frozen_gap": frozen_gap, "export_gap": export_gap,
+            "artifact_dgrad_launches": art_dgrad,
             "default_algorithms_rerun_gap": rerun_gap,
             "launches": launches}
 
@@ -4017,6 +4216,7 @@ def main():
     entries = [check_poe(kernels, recon, timer, dev), check_bce(kernels, timer, dev)]
     entries.append(check_bce_bf16(kernels, timer, dev, entries[1]))
     entries.append(check_conv_wgrad(kernels, timer, dev))
+    entries.append(check_conv_dgrad(kernels, timer, dev))
     entries.append(check_bn_swish(kernels, timer, dev))
     one = torch.zeros(1, device=dev)
     say(f"[3/6] timer floor: a one-float zero_() reads {timer(one.zero_):.5f} ms "
@@ -4055,7 +4255,7 @@ def main():
                                  seq_len=8, profile_steps=2, top=25),
         "cnn-vae": run_path("(c) cnn-vae", vae, kernels, card,
                             {"poe_reparam": 0, "bce_sum": 0}, wgrad_per_step=8,
-                            bn_swish_per_step=6),
+                            dgrad_per_step=7, bn_swish_per_step=6),
         "seq_bf16_full": run_path("(d) seq flagship", dataclasses.replace(
             flag, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step,
             profile_steps=3, determinism_rows=(512, 128)),
@@ -4079,7 +4279,7 @@ def main():
         refcfg = refcfg_path(card, Path(tmp))
 
     for e in entries:
-        if e["name"] in ("conv_wgrad_f32", "fused_bn_swish"):   # counted in (a)-(e)
+        if e["name"] in ("conv_wgrad_f32", "conv_dgrad_f32", "fused_bn_swish"):   # (a)-(e)
             e["launches"] = paths["dyn_modeling"]["launches"][e["name"]]
             e["launches_by_path"] = {name: p["launches"][e["name"]]
                                      for name, p in paths.items()}

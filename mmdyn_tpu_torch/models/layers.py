@@ -37,12 +37,15 @@ form is here:
 * ``Linear`` / ``Conv2d`` / ``ConvTranspose2d`` — torch's layers under an
   activation policy (``compute_dtype``, JAX ``layers.py:201-227``):
 
-  - ``float32``: torch's own forward, unchanged. A convolution runs
-    through ``_ConvF32``: torch's forward and data-gradient calls, but the
-    weight gradient of ``ops.kernels.conv_wgrad_f32`` (on the card a
-    hand-written kernel that sums in a fixed order; on the CPU its plain
-    version), whose geometry is the cnn models' (4 x 4 kernels, stride 1 or
-    2, padding 0 or 1): the weight gradient of any other raises.
+  - ``float32``: a convolution runs through ``_ConvF32``: the forward of a
+    ``Conv2d`` and the data gradient of a ``ConvTranspose2d`` are torch's
+    calls (cuDNN's on the card); the data gradient of a ``Conv2d`` and the
+    forward of a ``ConvTranspose2d`` are ``ops.kernels.conv_dgrad_f32``, and
+    every weight gradient is ``ops.kernels.conv_wgrad_f32`` (on the card
+    hand-written kernels that sum in a fixed order; on the CPU their plain
+    versions). Their geometry is the cnn models' (4 x 4 kernels, stride 1 or
+    2, padding 0 or 1): a transposed convolution of any other raises in its
+    forward, a convolution in its backward.
   - ``bfloat16``: the input and the weight are cast to bf16 for the product
     (the tensor cores accumulate in float32), the output is upcast to
     float32, and the bias is added in float32.
@@ -64,7 +67,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmdyn_tpu_torch.config import BN_EPS
-from mmdyn_tpu_torch.ops.kernels import conv_wgrad_f32, fused_bn_swish
+from mmdyn_tpu_torch.ops.kernels import conv_dgrad_f32, conv_wgrad_f32, fused_bn_swish
 from mmdyn_tpu_torch.parallel.mesh import active_mesh, global_draw, var_mean
 
 POLICIES = ("float32", "bfloat16", "bfloat16_full")
@@ -282,11 +285,13 @@ class Linear(nn.Linear):
 
 
 class _ConvF32(torch.autograd.Function):
-    """A float32 convolution, transposed or not: the forward and the input and
-    bias gradients are the calls autograd makes without it (``F.conv2d`` /
-    ``F.conv_transpose2d``, and ``aten.convolution_backward`` without the
-    weight's output: cuDNN's on the card), the weight gradient is
-    ``conv_wgrad_f32``."""
+    """A float32 convolution, transposed or not. The data gradient of a
+    convolution and the forward of a transposed one (the same sum) are
+    ``conv_dgrad_f32``, every weight gradient is ``conv_wgrad_f32``; the
+    forward of a convolution, the data gradient of a transposed one and the
+    bias gradient are the calls autograd makes without it (``F.conv2d`` and
+    ``aten.convolution_backward``: cuDNN's on the card). The bias of a
+    transposed convolution is added after the kernel."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, transposed, stride, padding, output_padding,
@@ -294,10 +299,12 @@ class _ConvF32(torch.autograd.Function):
         ctx.save_for_backward(x, weight)
         ctx.conv = (transposed, stride, padding, output_padding, dilation, groups)
         ctx.bias_sizes = None if bias is None else list(bias.shape)
-        if transposed:
-            return F.conv_transpose2d(x, weight, bias, stride, padding, output_padding,
-                                      groups, dilation)
-        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+        if not transposed:
+            return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+        size = [(n - 1) * s - 2 * p + k + o for n, s, p, k, o in zip(
+            x.shape[2:], stride, padding, weight.shape[2:], output_padding)]
+        y = conv_dgrad_f32(x, weight, size, stride, padding, dilation, groups)
+        return _with_bias(y, bias, 2)
 
     @staticmethod
     def backward(ctx, grad):
@@ -305,10 +312,14 @@ class _ConvF32(torch.autograd.Function):
         transposed, stride, padding, output_padding, dilation, groups = ctx.conv
         dx = dw = db = None
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        if need_x or need_b:
-            dx, _, db = torch.ops.aten.convolution_backward(
+        if need_x and not transposed:
+            dx = conv_dgrad_f32(grad, weight, x.shape[2:], stride, padding, dilation, groups)
+        rest = (need_x and transposed, False, need_b)
+        if any(rest):
+            dx_t, _, db = torch.ops.aten.convolution_backward(
                 grad, x, weight, ctx.bias_sizes, stride, padding, dilation, transposed,
-                output_padding, groups, (need_x, False, need_b))
+                output_padding, groups, rest)
+            dx = dx_t if transposed else dx
         if need_w:
             g = grad.contiguous()      # the decoders' last one arrives as an NHWC view
             # a transposed convolution's weight gradient is the convolution's

@@ -1,7 +1,7 @@
 """The two fused kernels of the subset-ELBO step, each with its plain PyTorch
-version, its ``torch.autograd.Function`` and a launch counter; the weight
-gradient of the cnn models' float32 convolutions, with its plain version and
-a launch counter; and the cnn trunks' BatchNorm + swish, likewise.
+version, its ``torch.autograd.Function`` and a launch counter; the weight and
+data gradients of the cnn models' float32 convolutions, each with its plain
+version and a launch counter; and the cnn trunks' BatchNorm + swish, likewise.
 
 ``fused_poe_reparam`` — product-of-experts posterior of all K modality subsets
 plus the reparameterised sample, in one pass.
@@ -72,6 +72,33 @@ kernel, stride 1 or 2, padding 0 or 1 (every layer of ``models/vae.py``'s
   * ``models/layers.py`` calls it from the backward of the float32 ``Conv2d``
     and ``ConvTranspose2d``; a transposed convolution passes its output
     gradient as ``x`` and its input as ``dy``.
+
+``conv_dgrad_f32`` — the data gradient of a float32 convolution of the same
+geometry: the encoders' input gradients, and the decoders' transposed-
+convolution forwards (a transposed convolution's forward is a convolution's
+data gradient, its weight read as (C_in, C_out, 4, 4)).
+  * Replaces no TPU kernel (XLA computes the JAX package's data gradients and
+    transposed convolutions); CUDA source ``csrc/conv_dgrad.cu``. Added
+    because under cuDNN's deterministic algorithms (bit-identical reruns)
+    float32 data gradients run as ``dgrad2d_alg1_1`` and 32 x 32 FFTs, at
+    12-24% of an H100's float32 rate: 115 ms of a 227 ms dyn_modeling step.
+  * Bound by FFMA throughput: 2 * B * C_dy * H_dy * W_dy * C_x * 16
+    operations in float32 without tensor cores (67 TFLOP/s); 1.28 TFLOP, 19.0
+    ms, over the 14 calls of a dyn_modeling step at 256 x 8.
+  * Design: stride 2 an implicit GEMM (M = C_x, N = the dX pixels, K = C_dy
+    x taps) on a re-laid copy of the weight, split into its four sub-pixel
+    phases, each with exactly its 2 x 2 taps; stride 1 (5 x 5 <-> 8 x 8) a
+    GEMM of the weight as it is (M = C_x x 16 taps, N = whole images' dY
+    pixels, K = C_dy) whose taps each dX pixel then adds from shared memory.
+    No split-K and no atomics: each output is one thread's sum in a fixed
+    order, so the bits depend on neither the batch nor the tile, which
+    follows the shapes alone.
+  * A custom operator (``mmdyn::conv_dgrad``) with a fake and autograd (the
+    gradient to ``dy`` is the convolution's forward, to the weight
+    ``conv_wgrad_f32``), so that ``torch.export`` records it as one node and
+    an exported artifact runs the kernel. ``models/layers.py`` calls it from
+    the forward of the float32 ``ConvTranspose2d`` and the backward of the
+    float32 ``Conv2d``.
 
 ``fused_bn_swish`` — train-mode BatchNorm (statistics per (group, channel))
 followed by swish on float32 activations, with its closed-form backward.
@@ -316,10 +343,10 @@ fused_masked_bce_sum.launches_bf16 = 0     # those of them with bf16 logits
 
 
 # ---------------------------------------------------------------------------
-# weight gradient of the float32 convolutions
+# weight and data gradients of the float32 convolutions
 # ---------------------------------------------------------------------------
 
-WGRAD_TAPS = 4              # the kernel's height and width
+CONV_TAPS = 4               # the kernels' height and width
 
 
 def _square(name, v):
@@ -329,19 +356,19 @@ def _square(name, v):
     return int(a)
 
 
-def _check_wgrad_geometry(kernel_size, stride, padding, dilation=1, groups=1):
-    """(stride, padding) of a convolution ``conv_wgrad_f32`` takes: a 4 x 4
-    kernel, stride 1 or 2, padding 0 or 1, dilation 1, groups 1, the same on
-    both axes; raises on any other."""
+def _check_conv_geometry(fn, kernel_size, stride, padding, dilation=1, groups=1):
+    """(stride, padding) of a convolution that ``conv_wgrad_f32`` and
+    ``conv_dgrad_f32`` (named ``fn`` in the error) take: a 4 x 4 kernel,
+    stride 1 or 2, padding 0 or 1, dilation 1, groups 1, the same on both
+    axes; raises on any other."""
     k = _square("kernel_size", kernel_size)
     s, p = _square("stride", stride), _square("padding", padding)
     d = _square("dilation", dilation)
-    _require(k == WGRAD_TAPS, f"conv_wgrad_f32: a {WGRAD_TAPS} x {WGRAD_TAPS} kernel only, "
-             f"got {k}")
+    _require(k == CONV_TAPS, f"{fn}: a {CONV_TAPS} x {CONV_TAPS} kernel only, got {k}")
     _require(s in (1, 2) and p in (0, 1),
-             f"conv_wgrad_f32: stride 1 or 2 and padding 0 or 1 only, got {s}, {p}")
+             f"{fn}: stride 1 or 2 and padding 0 or 1 only, got {s}, {p}")
     _require(d == 1 and groups == 1,
-             f"conv_wgrad_f32: dilation 1 and groups 1 only, got {d}, {groups}")
+             f"{fn}: dilation 1 and groups 1 only, got {d}, {groups}")
     return s, p
 
 
@@ -353,12 +380,12 @@ def conv_wgrad_plain(x, dy, stride, padding):
     order, in the inputs' dtype."""
     b, c = x.shape[:2]
     m = dy.shape[1]
-    cols = F.unfold(x, WGRAD_TAPS, padding=padding, stride=stride)   # (B, C*16, L)
-    d = dy.reshape(b, m, -1)                                          # (B, M, L)
+    cols = F.unfold(x, CONV_TAPS, padding=padding, stride=stride)    # (B, C*16, L)
+    d = dy.reshape(b, m, -1)                                         # (B, M, L)
     dw = torch.zeros((m, cols.shape[1]), dtype=x.dtype, device=x.device)
     for i in range(b):
         dw.addmm_(d[i], cols[i].T)
-    return dw.reshape(m, c, WGRAD_TAPS, WGRAD_TAPS)
+    return dw.reshape(m, c, CONV_TAPS, CONV_TAPS)
 
 
 def _conv_wgrad_cuda(x, dy, stride, padding):
@@ -366,8 +393,8 @@ def _conv_wgrad_cuda(x, dy, stride, padding):
         _require_cuda(name, t, x.device)
     b, c, h, w = x.shape
     m, ho, wo = dy.shape[1:]
-    n, k = c * WGRAD_TAPS ** 2, b * ho * wo
-    dw = torch.empty((m, c, WGRAD_TAPS, WGRAD_TAPS), device=x.device, dtype=torch.float32)
+    n, k = c * CONV_TAPS ** 2, b * ho * wo
+    dw = torch.empty((m, c, CONV_TAPS, CONV_TAPS), device=x.device, dtype=torch.float32)
     if k == 0 or dw.numel() == 0:
         return dw.zero_()
     lib = build.load("conv_wgrad")
@@ -389,12 +416,13 @@ def conv_wgrad_f32(x, dy, kernel_size, stride, padding, dilation=1, groups=1):
     """The weight gradient (M, C, 4, 4) of the convolution of x (B, C, H, W)
     whose output gradient is dy (B, M, H_out, W_out), both NCHW contiguous:
     the CUDA kernel for float32 CUDA tensors, the plain version for CPU
-    tensors. Raises outside ``_check_wgrad_geometry``'s geometry."""
-    s, p = _check_wgrad_geometry(kernel_size, stride, padding, dilation, groups)
+    tensors. Raises outside ``_check_conv_geometry``'s geometry."""
+    s, p = _check_conv_geometry("conv_wgrad_f32", kernel_size, stride, padding, dilation,
+                                groups)
     _require(x.dim() == 4 and dy.dim() == 4 and x.shape[0] == dy.shape[0],
              f"x (B, C, H, W) and dy (B, M, H_out, W_out) expected, got "
              f"{tuple(x.shape)} and {tuple(dy.shape)}")
-    out = tuple((size + 2 * p - WGRAD_TAPS) // s + 1 for size in x.shape[2:])
+    out = tuple((size + 2 * p - CONV_TAPS) // s + 1 for size in x.shape[2:])
     _require(tuple(dy.shape[2:]) == out,
              f"dy: spatial {out} expected for x {tuple(x.shape)}, got {tuple(dy.shape)}")
     _require(x.is_contiguous() and dy.is_contiguous(), "x and dy must be contiguous")
@@ -404,6 +432,103 @@ def conv_wgrad_f32(x, dy, kernel_size, stride, padding, dilation=1, groups=1):
 
 
 conv_wgrad_f32.launches = 0
+
+
+def conv_dgrad_plain(dy, weight, input_size, stride, padding):
+    """dX[b, c, ih, iw] = sum over (m, kh, kw) of dy[b, m, oh, ow] *
+    weight[m, c, kh, kw], ih = oh * stride - padding + kh (likewise iw): the
+    kernel's GEMM over channels written out as one matmul of each image's
+    dy with the weight, then its taps summed into place (``F.fold``), in the
+    inputs' dtype. ``input_size`` is dX's (H, W)."""
+    b, m = dy.shape[:2]
+    c = weight.shape[1]
+    w_t = weight.reshape(m, c * CONV_TAPS ** 2).T.contiguous()     # (C*16, M)
+    cols = torch.matmul(w_t, dy.reshape(b, m, -1))                   # (B, C*16, L)
+    return F.fold(cols, tuple(input_size), CONV_TAPS, padding=padding, stride=stride)
+
+
+def _conv_dgrad_cuda(dy, weight, input_size, stride, padding):
+    for name, t in (("dy", dy), ("weight", weight)):
+        _require_cuda(name, t, dy.device)
+    b, m, ho, wo = dy.shape
+    c = weight.shape[1]
+    h, w = input_size
+    dx = torch.empty((b, c, h, w), device=dy.device, dtype=torch.float32)
+    if dx.numel() == 0 or m == 0:
+        return dx.zero_()
+    lib = build.load("conv_dgrad")
+    floats = lib.conv_dgrad_f32_workspace(m, c, stride, ho, wo)
+    # the kernel's offsets are 32-bit
+    _require(max(dy.numel(), dx.numel(), floats) < 2 ** 31,
+             f"conv_dgrad_f32: dy {tuple(dy.shape)}, dx {tuple(dx.shape)} and the weight's "
+             f"copy must each hold under 2^31 elements")
+    wt = torch.empty(floats, device=dy.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    build.check(lib.conv_dgrad_f32(
+        dy.data_ptr(), weight.data_ptr(), wt.data_ptr(), dx.data_ptr(), b, m, ho, wo, c, h, w,
+        stride, padding, stream), "conv_dgrad launch")
+    conv_dgrad_f32.launches += 1
+    return dx
+
+
+@torch.library.custom_op("mmdyn::conv_dgrad", mutates_args=())
+def _conv_dgrad_op(dy: torch.Tensor, weight: torch.Tensor, input_size: list[int],
+                   stride: int, padding: int) -> torch.Tensor:
+    """dX (B, C, *input_size) from dy (B, M, H_out, W_out) and the weight
+    (M, C, 4, 4)."""
+    fn = conv_dgrad_plain if _on_cpu(dy) else _conv_dgrad_cuda
+    return fn(dy.contiguous(), weight.contiguous(), input_size, stride, padding)
+
+
+@_conv_dgrad_op.register_fake
+def _(dy, weight, input_size, stride, padding):
+    return dy.new_empty((dy.shape[0], weight.shape[1], *input_size))
+
+
+def _conv_dgrad_setup(ctx, inputs, output):
+    dy, weight, _, stride, padding = inputs
+    ctx.save_for_backward(dy, weight)
+    ctx.geometry = (stride, padding)
+
+
+def _conv_dgrad_grad(ctx, g):
+    """The data gradient is linear in dy and in the weight: its gradient to dy
+    is the convolution's forward of ``g``, to the weight the convolution's
+    weight gradient with ``g`` as the input and dy as the output's
+    gradient."""
+    dy, weight = ctx.saved_tensors
+    s, p = ctx.geometry
+    ddy = F.conv2d(g, weight, None, s, p) if ctx.needs_input_grad[0] else None
+    dw = (conv_wgrad_f32(g.contiguous(), dy.contiguous(), CONV_TAPS, s, p)
+          if ctx.needs_input_grad[1] else None)
+    return ddy, dw, None, None, None
+
+
+_conv_dgrad_op.register_autograd(_conv_dgrad_grad, setup_context=_conv_dgrad_setup)
+
+
+def conv_dgrad_f32(dy, weight, input_size, stride, padding, dilation=1, groups=1):
+    """The data gradient dX (B, C, H, W), ``input_size`` = (H, W), of the
+    convolution of weight (M, C, 4, 4) whose output gradient is dy (B, M,
+    H_out, W_out); equally the forward of the transposed convolution of dy
+    by that weight (read as (C_in, C_out, 4, 4)) at output size (H, W). The
+    CUDA kernel for float32 CUDA tensors, the plain version for CPU tensors,
+    through the custom operator ``mmdyn::conv_dgrad``; differentiable in dy
+    and the weight. Raises outside ``_check_conv_geometry``'s geometry."""
+    s, p = _check_conv_geometry("conv_dgrad_f32", weight.shape[2:], stride, padding,
+                                dilation, groups)
+    size = [int(v) for v in input_size]
+    _require(dy.dim() == 4 and weight.dim() == 4 and dy.shape[1] == weight.shape[0]
+             and len(size) == 2,
+             f"dy (B, M, H_out, W_out), weight (M, C, 4, 4) and input_size (H, W) expected, "
+             f"got {tuple(dy.shape)}, {tuple(weight.shape)} and {tuple(size)}")
+    out = tuple((v + 2 * p - CONV_TAPS) // s + 1 for v in size)
+    _require(tuple(dy.shape[2:]) == out,
+             f"dy: spatial {out} expected for input size {tuple(size)}, got {tuple(dy.shape)}")
+    return _conv_dgrad_op(dy, weight, size, s, p)
+
+
+conv_dgrad_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------

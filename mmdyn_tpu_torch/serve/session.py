@@ -127,11 +127,13 @@ class InferenceSession:
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
         if self.device.type == "cuda":
-            # cuDNN's default algorithms for the decoders' transposed
-            # convolutions are not deterministic: the same batch reruns to
-            # other last bits. A serving session must rerun bit for bit (and
-            # its graph equal its eager call), so on the card it selects
-            # cuDNN's deterministic algorithms, for the process.
+            # cuDNN's default algorithms are not all deterministic: the same
+            # batch can rerun to other last bits. A serving session must
+            # rerun bit for bit (and its graph equal its eager call), so on
+            # the card it selects cuDNN's deterministic algorithms for the
+            # convolutions cuDNN runs, for the process (the float32
+            # transposed ones are ``ops.kernels.conv_dgrad_f32``, which sums
+            # in a fixed order).
             torch.backends.cudnn.deterministic = True
         self.cfg = cfg
         self.norms = norms or {}  # dataset min-max constants (norms.json)

@@ -72,15 +72,19 @@ def cudnn_deterministic(fn, device):
     call runs with cuDNN's deterministic algorithms (the setting before the
     call is restored after it); elsewhere ``fn`` itself.
 
-    In float32 cuDNN's default algorithms for the convolutions' data and
-    weight gradients, and for the decoders' transposed-convolution forwards
-    (a data gradient in cuDNN's terms), sum in an order that changes from
-    call to call: one step rerun from one state differs in its last bits,
-    and a resumed run drifts from the uninterrupted one. The JAX package's
-    step reruns bit for bit. The bf16 policies' default algorithms rerun bit
-    for bit already, and there the setting costs nothing. The backward runs
-    inside the call, so the setting covers it. The unwrapped function is
-    ``__wrapped__``.
+    A step must rerun bit for bit from one state, as the JAX package's
+    does, or a resumed run drifts from the uninterrupted one. In float32
+    cuDNN's default algorithms for the convolutions' data and weight
+    gradients, and for the decoders' transposed-convolution forwards (a data
+    gradient in cuDNN's terms), sum in an order that changes from call to
+    call; those passes are the port's own kernels
+    (``models/layers.py::_ConvF32``: ``conv_wgrad_f32``, ``conv_dgrad_f32``),
+    which sum in a fixed order. What cuDNN still runs (the convolutions'
+    forwards, the transposed convolutions' data gradients and the bias
+    gradients) runs its deterministic algorithms under this setting. The
+    bf16 policies' default algorithms rerun bit for bit already, and there
+    the setting costs nothing. The backward runs inside the call, so the
+    setting covers it. The unwrapped function is ``__wrapped__``.
     """
     if torch.device(device).type != "cuda":
         return fn

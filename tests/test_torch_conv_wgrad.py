@@ -3,8 +3,9 @@ and the layers that call it (``models.layers._ConvF32``), on the CPU.
 
 The plain version spells out the CUDA kernel's implicit GEMM; here it is held
 to torch's autograd of ``nn.Conv2d`` / ``nn.ConvTranspose2d`` at every
-geometry of the cnn models, and the layers' forward and input gradient to the
-calls they made before, bit for bit.
+geometry of the cnn models, and the layers' other outputs to torch's: bit for
+bit where they are torch's calls, to float32 rounding where they are
+``conv_dgrad_f32``'s (``tests/test_torch_conv_dgrad.py``).
 """
 
 import numpy as np
@@ -26,6 +27,16 @@ HALLUCINATE = [(256, 128, 4, 1, 0, 5), (128, 64, 4, 2, 1, 8), (64, 32, 4, 2, 1, 
                (32, 3, 4, 2, 1, 32)]
 CASES = [(False, g) for g in TRUNK] + [(True, g) for g in HALLUCINATE]
 IDS = [f"{'deconv' if t else 'conv'}{g[:5]}" for t, g in CASES]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: the shapes are small, and the suite's other
+    workers share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _geometry(module):
@@ -74,10 +85,12 @@ def test_plain_weight_grad_matches_autograd(transposed, geometry):
 @pytest.mark.parametrize("transposed, geometry", CASES, ids=IDS)
 def test_layer_forward_and_input_grad_are_unchanged(transposed, geometry, bias):
     """The float32 layer through ``_ConvF32`` against torch's own layer with
-    the same weights: forward, input and bias gradients bit for bit, the
-    weight gradient to float32 rounding (relative to its largest element).
-    The output gradient is a permuted view, as the decoders' last layer
-    receives it (NCHW -> NHWC)."""
+    the same weights: a convolution's forward, a transposed one's input
+    gradient and the bias gradient bit for bit (torch's calls); the weight
+    gradient, a convolution's input gradient and a transposed one's forward
+    (``conv_wgrad_f32`` and ``conv_dgrad_f32``) to float32 rounding, relative
+    to the largest element. The output gradient is a permuted view, as the
+    decoders' last layer receives it (NCHW -> NHWC)."""
     c_in, c_out, k, s, p, _ = geometry
     ref = _torch_layer(transposed, geometry, bias=bias)
     cls = layers.ConvTranspose2d if transposed else layers.Conv2d
@@ -86,23 +99,27 @@ def test_layer_forward_and_input_grad_are_unchanged(transposed, geometry, bias):
     x_ref = _input(geometry).requires_grad_(True)
     x_port = x_ref.detach().clone().requires_grad_(True)
     y_ref, y_port = ref(x_ref), port(x_port)
-    assert torch.equal(y_port, y_ref)
     nhwc = np.random.default_rng(3).normal(size=y_ref.permute(0, 2, 3, 1).shape)
     g = torch.tensor(nhwc, dtype=torch.float32).permute(0, 3, 1, 2)
     y_ref.backward(g)
     y_port.backward(g)
-    assert torch.equal(x_port.grad, x_ref.grad)
+    forward, input_grad = (y_port.detach(), y_ref.detach()), (x_port.grad, x_ref.grad)
+    # a transposed convolution's forward is the data-gradient kernel's sum
+    kernel_made, torch_made = (forward, input_grad) if transposed else (input_grad, forward)
+    assert torch.equal(*torch_made)
     if bias:
         assert torch.equal(port.bias.grad, ref.bias.grad)
-    # float32 sums of up to 2,048 products, in another order than torch's
-    scale = float(ref.weight.grad.abs().max())
-    torch.testing.assert_close(port.weight.grad, ref.weight.grad, rtol=0, atol=1e-5 * scale)
+    # float32 sums of up to 4,096 products, in another order than torch's
+    for got, want in (kernel_made, (port.weight.grad, ref.weight.grad)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
 
 
 def test_first_layer_skips_the_input_gradient(monkeypatch):
     """An input that needs no gradient (the encoders' images) gets no data
-    gradient call; the weight gradient still comes."""
-    calls = []
+    gradient call; the weight gradient still comes. One that needs it gets
+    ``conv_dgrad_f32``'s, and no ``aten.convolution_backward`` (no bias)."""
+    calls, dgrad = [], []
     real = torch.ops.aten.convolution_backward
 
     class Spy:
@@ -111,12 +128,15 @@ def test_first_layer_skips_the_input_gradient(monkeypatch):
             return real(*args)
 
     monkeypatch.setattr(torch.ops.aten, "convolution_backward", Spy())
+    real_plain = kernels.conv_dgrad_plain
+    monkeypatch.setattr(kernels, "conv_dgrad_plain",
+                        lambda *a: dgrad.append(a[0].shape) or real_plain(*a))
     layer = layers.Conv2d(3, 32, 4, 2, 1, bias=False)
     layer(_input(TRUNK[0])).sum().backward()
-    assert calls == [] and layer.weight.grad is not None
+    assert calls == [] and dgrad == [] and layer.weight.grad is not None
     x = _input(TRUNK[0]).requires_grad_(True)
     layer(x).sum().backward()
-    assert calls == [(True, False, False)] and x.grad is not None
+    assert calls == [] and dgrad == [(2, 32, 32, 32)] and x.grad is not None
 
 
 @pytest.mark.parametrize("kw, match", [
@@ -129,11 +149,17 @@ def test_first_layer_skips_the_input_gradient(monkeypatch):
 ], ids=["k3", "groups2", "dilation2", "stride3", "padding2", "k4x2"])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_geometry_outside_the_kernel_raises(kw, match, transposed):
-    """The forward is torch's call; the weight gradient raises."""
+    """A convolution's forward is torch's call and its weight gradient raises;
+    a transposed convolution's forward (``conv_dgrad_f32``) raises."""
     args = dict(kernel_size=4, stride=2, padding=1, groups=1, dilation=1) | kw
     cls = layers.ConvTranspose2d if transposed else layers.Conv2d
     layer = cls(4, 8, args.pop("kernel_size"), **args)
-    y = layer(torch.zeros((2, 4, 8, 8)))
+    x = torch.zeros((2, 4, 8, 8))
+    if transposed:
+        with pytest.raises(ValueError, match=match):
+            layer(x)
+        return
+    y = layer(x)
     with pytest.raises(ValueError, match=match):
         y.sum().backward()
 
@@ -151,9 +177,12 @@ def test_non_contiguous_input_raises():
 
 def test_cpu_path_launches_nothing(monkeypatch):
     monkeypatch.setattr(kernels.conv_wgrad_f32, "launches", 0)
+    monkeypatch.setattr(kernels.conv_dgrad_f32, "launches", 0)
     layer = layers.ConvTranspose2d(8, 4, 4, 2, 1, bias=False)
     layer(torch.randn(2, 8, 4, 4)).sum().backward()
-    assert kernels.conv_wgrad_f32.launches == 0
+    layer = layers.Conv2d(8, 4, 4, 2, 1, bias=False)
+    layer(torch.randn(2, 8, 8, 8, requires_grad=True)).sum().backward()
+    assert kernels.conv_wgrad_f32.launches == kernels.conv_dgrad_f32.launches == 0
 
 
 def _spy_function(monkeypatch):
