@@ -7,16 +7,25 @@ The host path renders and shades every snapshot on the host
 of an object's trials there in one batched rollout
 (``run_trials_device_physics``). Every device helper takes a ``device``:
 ``None`` means the card and raises without one.
+
+The experiment CLIs (``exp_1_flat_plane``, ``exp_2_inclined_plane``,
+``exp_3_force_pert``) share one trial driver (``run_experiment``): each
+builds a ``Scene`` from its flags, which holds all their trials differ in.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import queue
+import random
 import sys
 import threading
 import time
+from collections import defaultdict
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -528,3 +537,323 @@ def snapshot(sensor, obj_id, path, img_counter, mask_seg_to_obj=True, debug=Fals
         if tactile_img is not None:
             cam.show_image(tactile_img, title="Tactile RGB", save=False)
     return pose, force
+
+
+# ----------------------------------------------------------------------
+# the experiment CLIs' trial driver
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """What one experiment's trials differ in."""
+
+    drop: Tuple[float, float, float] = (0.0, 0.0, 1.5)  # the object's spawn position
+    random_orn: bool = True             # sample_pose draws the drop orientation
+    sensor_orientation: tuple = (0, 0, 0, 1)
+    sensor_mass: float = 10000          # exp_3: 100, a sensor its shock moves
+    use_force: bool = False             # the equilibrium sensor (host path only)
+    # exp_2: the tilted sensor is held in place, on PyBullet by a fixed
+    # constraint pinned again every step (exp_2:131 fix_object), on the
+    # analytic engine by setting its pose back every step
+    pinned: bool = False
+    reset_spawn_pose: bool = False      # exp_1 sets the spawned pose to itself
+    mask_seg_to_obj: bool = True
+    log_force: bool = False             # data.json's per-frame contact force
+    # exp_3: the lateral shock on the sensor at steps first..last, drawn per
+    # trial at this amplitude; the dumps go under str(int(amplitude))
+    shock: Optional[Tuple[int, int, float]] = None
+    snapshot_from: int = 0              # the first step that takes snapshots
+    skip_empty: bool = False            # exp_3: a trial with no snapshot is skipped, warned
+    note: str = ""                      # the end of each trial's print line
+
+
+def resolve_engine(args):
+    """``--engine auto``: PyBullet where it imports, else the analytic engine;
+    ``--device-physics`` needs the analytic one."""
+    engine = args.engine
+    if engine == "auto":
+        try:
+            import pybullet  # noqa: F401
+            engine = "pybullet"
+        except ImportError:
+            engine = "analytic"
+    if args.device_physics and engine != "analytic":
+        raise SystemExit("--device-physics requires the analytic engine")
+    return engine
+
+
+def device_of(args):
+    """The device of the ``--device-*`` paths (None for the host path)."""
+    from mmdyn_tpu_torch.utils.device import device_for_platform
+
+    if args.device_physics or args.device_render:
+        return device_for_platform(args.platform)
+    return None
+
+
+def iter_objects(args, engine):
+    """Yield parsed object records for the configured engine."""
+    from mmdyn_tpu_torch.sim import config
+    from mmdyn_tpu_torch.sim.assets import (parse_shapenet_sem, preload_shapenet_sem,
+                                            synthetic_object_catalog)
+
+    if engine == "pybullet":
+        meta_df, root = preload_shapenet_sem(path=args.dataset_dir,
+                                             category=args.category or [""])
+        print(f"Total number of available objects (before filtering out): {meta_df.shape}")
+        for _, row in meta_df.iterrows():
+            info = parse_shapenet_sem(row, root)
+            if (info["colors"] or info["textured_material"]) and \
+                    np.linalg.norm(info["center_mass"]) < config.COM_THRESHOLD:
+                yield info
+    else:
+        yield from synthetic_object_catalog(args.n_objects, seed=args.seed or 0)
+
+
+def _setup(args, scene, engine, renders):
+    """One trial's (or one batched rollout's) backend and sensor."""
+    from mmdyn_tpu_torch.sim import config
+    from mmdyn_tpu_torch.sim.physics import PyBulletBackend, setup_backend
+    from mmdyn_tpu_torch.sim.sensor import make_sensor
+
+    backend = setup_backend(time_step=config.TIME_STEP, renders=renders, gravity=True,
+                            engine=engine)
+    sensor = make_sensor(backend, size=[1.5, 1.5, 1], position=[0, 0, 0.5],
+                         orientation=scene.sensor_orientation, sensor_vector=[0, 0, 1],
+                         thickness=0.005, mass=scene.sensor_mass, use_force=scene.use_force,
+                         constrained=scene.pinned and isinstance(backend, PyBulletBackend),
+                         fast_shading=args.fast_shading)
+    return backend, sensor
+
+
+def _draw_drop(args, scene, info):
+    """A trial's first RNG draws, in the reference's order: the colour, then
+    the drop pose (its sampled position, its orientation)."""
+    from mmdyn_tpu_torch.sim.sample import sample_pose
+
+    if not info["textured_material"]:
+        color = list(random.choice(info["colors"]))
+        color[-1] = 1.0
+    else:
+        color = []
+    position, orientation = sample_pose(np.array(scene.drop), random_chance=0.8,
+                                        random_orn=scene.random_orn, gaussian_mean=0,
+                                        gaussian_std=args.drop_std)
+    return color, position, orientation
+
+
+def _draw_shock(scene):
+    amp = scene.shock[2]
+    return [amp * np.random.normal(), amp * np.random.normal(), 0]
+
+
+def _spawn(backend, info, scene, color):
+    from mmdyn_tpu_torch.sim.assets import spawn_object
+
+    com_shift = info["center_mass"] - np.array([0, 0, info["mesh_height"] / 4])
+    return spawn_object(backend, info, position=np.array(scene.drop) - info["center_mass"],
+                        orientation=[0, 0, 0, 1], mass=1, color=color, COM_shift=com_shift)
+
+
+def _sequence_path(args, scene, info, k):
+    parts = [info["synset"], info["obj_name"]]
+    if scene.shock is not None:
+        parts.append(str(int(scene.shock[2])))
+    return Path(args.logdir).joinpath(*parts, "sequence_" + str(k).zfill(4))
+
+
+def _warn_empty(args, scene):
+    print(f"WARNING: no snapshots taken (n_timesteps {args.n_timesteps} <= "
+          f"snapshot_from {scene.snapshot_from}); skipping trial")
+
+
+def run_trial(args, scene, info, k, engine):
+    """One trial on the host: spawn, drop, step ``n_timesteps`` and dump a
+    snapshot every ``interval`` steps. False for a skipped trial."""
+    from mmdyn_tpu_torch.sim import config
+    from mmdyn_tpu_torch.sim.physics import PyBulletBackend
+
+    backend, sensor = _setup(args, scene, engine, renders=not args.headless)
+    color, position, orientation = _draw_drop(args, scene, info)
+    obj_id = _spawn(backend, info, scene, color)
+    if scene.reset_spawn_pose:
+        backend.set_pose(obj_id, *backend.get_pose(obj_id))
+    if args.apply_sampled_position:
+        # non-parity: the sampled drop position is actually used
+        backend.set_pose(obj_id, position - info["center_mass"], orientation)
+    else:
+        # reference quirk: the sampled position discarded, the orientation applied
+        pos, _ = backend.get_pose(obj_id)
+        backend.set_pose(obj_id, pos, orientation)
+
+    # blank-image guard (exp_1:111-115)
+    _, _, _, seg_img, _ = sensor.get_sensor_image()
+    if sensor.is_blank(seg_img):
+        backend.reset()
+        backend.disconnect()
+        return False
+
+    data = defaultdict(list)
+    shock = _draw_shock(scene) if scene.shock is not None else None
+    img_counter = 0
+    deferred = make_deferred(sensor, device=device_of(args)) if args.device_render else None
+    path = _sequence_path(args, scene, info, k)
+    sensor_pose = backend.get_pose(sensor.sensor_id) if scene.pinned else None
+    for t in range(args.n_timesteps):
+        if scene.pinned:
+            if isinstance(backend, PyBulletBackend):
+                from mmdyn_tpu_torch.sim.pybullet_utils import fix_object
+                fix_object(backend, sensor.sensor_id, sensor._sensor_constraint)
+            else:
+                backend.set_pose(sensor.sensor_id, *sensor_pose)
+        if shock is not None and scene.shock[0] <= t <= scene.shock[1]:
+            backend.apply_external_force(sensor.sensor_id, shock)
+
+        if (t + 1) % args.interval == 0 and t >= scene.snapshot_from:
+            pose, force = snapshot(sensor, obj_id, path, img_counter,
+                                   mask_seg_to_obj=scene.mask_seg_to_obj,
+                                   show_image=args.show_image, deferred=deferred)
+            data["time_step"].append(t)
+            data["time"].append(t * config.TIME_STEP)
+            data["position"].append(list(pose[0]))
+            data["orientation"].append(list(pose[1]))
+            if scene.log_force:
+                data["force"].append(force)
+            if shock is not None:
+                data["shock"].append(shock)
+            img_counter += 1
+        backend.step()
+    if deferred is not None:
+        deferred.flush()
+
+    if img_counter == 0 and scene.skip_empty:
+        # n_timesteps never reached snapshot_from: no frames and no dump
+        # directory, a skipped trial
+        _warn_empty(args, scene)
+        backend.reset()
+        backend.disconnect()
+        return False
+
+    with open(path.joinpath("data.json"), "w") as f:
+        json.dump(data, f)
+    backend.reset()
+    backend.disconnect()
+    return True
+
+
+def run_trials_device(args, scene, info, trial_seeds):
+    """All of one object's trials in one batched device rollout
+    (--device-physics): the same per-trial RNG draws as run_trial (the
+    colour, sample_pose, then the shock), then physics and rendering on the
+    device (``run_trials_device_physics``), the shock shipped as the
+    rollout's external-force series. A pinned sensor is fixed on the
+    analytic engine (mass 10000), so the host loop's per-step re-pin
+    changes nothing and the rollout leaves it out."""
+    backend, sensor = _setup(args, scene, "analytic", renders=False)
+    trial_states, paths, colors, shocks = [], [], [], []
+    for k, seed in trial_seeds:
+        if seed is not None:
+            random.seed(seed)
+            np.random.seed(seed)
+        color, position, orientation = _draw_drop(args, scene, info)
+        colors.append(tuple(color))
+        if scene.shock is not None:
+            shocks.append(_draw_shock(scene))
+        p0 = (position if args.apply_sampled_position else np.array(scene.drop)) \
+            - info["center_mass"]
+        trial_states.append((p0, orientation))
+        paths.append(_sequence_path(args, scene, info, k))
+    # the synthetic catalog gives each object one colour, so all trials share
+    # the spawn colour (the batched scene has one object body)
+    if len(set(colors)) != 1:
+        raise ValueError("--device-physics requires a single color per object")
+    obj_id = _spawn(backend, info, scene, list(colors[0]))
+
+    ext = None
+    if scene.shock is not None:
+        # the per-step world-frame shock on the sensor
+        first, last, _ = scene.shock
+        ids = sorted(backend.bodies)
+        n_steps = int(args.n_timesteps)
+        ext = np.zeros((len(trial_states), n_steps, len(ids), 3), np.float32)
+        if first < n_steps:
+            last = min(last, n_steps - 1)
+            for k in range(len(trial_states)):
+                ext[k, first:last + 1, ids.index(sensor.sensor_id)] = shocks[k]
+
+    results = run_trials_device_physics(backend, sensor, obj_id,
+                                        [{obj_id: st} for st in trial_states],
+                                        args.n_timesteps, args.interval, paths,
+                                        snapshot_from=scene.snapshot_from, ext_forces=ext,
+                                        mask_seg_to_obj=scene.mask_seg_to_obj,
+                                        device=device_of(args))
+    n_ok = 0
+    for k, (path, res) in enumerate(zip(paths, results)):
+        if res is None:
+            continue    # blank-image guard (exp_1:111-115)
+        if not res["time_step"] and scene.skip_empty:
+            _warn_empty(args, scene)
+            continue
+        data = {key: res[key] for key in ("time_step", "time", "position", "orientation")}
+        if scene.log_force:
+            data["force"] = res["force"]
+        if scene.shock is not None:
+            data["shock"] = [shocks[k]] * len(res["time_step"])
+        path.mkdir(parents=True, exist_ok=True)
+        with open(path.joinpath("data.json"), "w") as f:
+            json.dump(data, f)
+        n_ok += 1
+    backend.reset()
+    backend.disconnect()
+    return n_ok
+
+
+def _run_trial_star(job):
+    args, scene, info, k, engine, seed = job
+    if seed is not None:
+        random.seed(seed)
+        np.random.seed(seed)
+    print(f"trial: {info['obj_name']} #{k} ({info['category']}){scene.note}")
+    return run_trial(args, scene, info, k, engine)
+
+
+def run_jobs(args, engine, jobs):
+    """The host path's trials, in a spawn pool of ``--workers`` processes on
+    the analytic engine (PyBullet connections are per-process globals)."""
+    if args.workers > 1 and engine == "analytic":
+        import multiprocessing as mp
+        with mp.get_context("spawn").Pool(args.workers) as pool:
+            pool.map(_run_trial_star, jobs)
+    else:
+        for job in jobs:
+            _run_trial_star(job)
+
+
+def run_experiment(args, scene):
+    """An experiment CLI's run from its parsed flags: every object's
+    ``--trial_per_obj`` trials on the host, or with ``--device-physics``
+    one batched device rollout per object."""
+    if args.seed is not None:
+        random.seed(args.seed)
+        np.random.seed(args.seed)
+    engine = resolve_engine(args)
+    if args.device_physics and scene.use_force:
+        raise SystemExit("--device-physics is incompatible with --use-force "
+                         "(the equilibrium buffer is sequential host state)")
+    if args.device_physics or args.device_render:
+        device_of(args)                 # no card and no --platform cpu: raise now
+
+    jobs, total = [], 0
+    for info in iter_objects(args, engine):
+        total += 1
+        trial_seeds = [(k, None if args.seed is None else args.seed + 7919 * total + k)
+                       for k in range(args.trial_per_obj)]
+        if args.device_physics:
+            print(f"device trials: {info['obj_name']} x{len(trial_seeds)} "
+                  f"({info['category']}){scene.note}")
+            run_trials_device(args, scene, info, trial_seeds)
+        else:
+            jobs += [(args, scene, info, k, engine, seed) for k, seed in trial_seeds]
+    if not args.device_physics:
+        run_jobs(args, engine, jobs)
+    print(f"done: {total} objects x {args.trial_per_obj} trials")

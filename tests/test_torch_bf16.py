@@ -26,6 +26,7 @@ from mmdyn_tpu_torch.ops import kernels as tk
 from mmdyn_tpu_torch.problems import ProblemConfig, make_optimizer, select_compute_dtype
 from mmdyn_tpu_torch.train import create_train_state, make_train_step
 from mmdyn_tpu_torch.utils.weights import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LATENT, B, T = 16, 4, 2
 BF16 = ["bfloat16", "bfloat16_full"]

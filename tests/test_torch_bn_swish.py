@@ -35,6 +35,7 @@ from mmdyn_tpu_torch.models import Regressor, setup_model
 from mmdyn_tpu_torch.models import layers
 from mmdyn_tpu_torch.models.vae import Decoder, Encoder
 from mmdyn_tpu_torch.ops import kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (5e-6, 5e-5)}   # (y, gradients)
 EPS = 1e-5
@@ -45,16 +46,6 @@ BN_CASES = [((4, 64, 16, 16), 1), ((4, 128, 8, 8), 1), ((4, 256, 5, 5), 1),
             ((8, 128, 8, 8), 4), ((8, 64, 16, 16), 4), ((8, 32, 32, 32), 4)]
 # the encoders' first conv, FC, and the decoders' upsample
 SWISH_SHAPES = [(4, 32, 32, 32), (4, 512), (8, 6400)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Torch on one thread: the tensors are small, and the suite's other
-    workers share the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def gap(a, b):

@@ -23,6 +23,7 @@ from mmdyn_tpu_torch.data import compile as tcompile
 from mmdyn_tpu_torch.data import dataset as tdataset
 from mmdyn_tpu_torch.data import native
 from mmdyn_tpu_torch.data.synthetic import make_synthetic_dumps
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (60, 80)        # dump frames (H, W); the compile resizes to 256, then 64
 

@@ -20,6 +20,7 @@ from mmdyn_tpu_torch.ops import kernels
 from mmdyn_tpu_torch.problems import ProblemConfig
 from mmdyn_tpu_torch.serve import InferenceSession, export_session, load_exported
 from tests.test_torch_conv_wgrad import HALLUCINATE, TRUNK, _step
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (transposed, (C_in, C_out, stride, padding, input side), batch): the cnn
 # models' eight layers (TRUNK, HALLUCINATE) at batch 2; a ragged batch,
@@ -31,16 +32,6 @@ CASES = ([(False, g[:2] + g[3:], 2) for g in TRUNK]
             (True, (8, 4, 2, 0, 4), 2), (False, (4, 8, 2, 0, 11), 3)])
 IDS = [f"{'deconv' if t else 'conv'}{g}-b{b}" for t, g, b in CASES]
 DECONV = HALLUCINATE[1][:2] + HALLUCINATE[1][3:]     # deconv(128, 64, 4, 2, 1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one thread: the shapes are small (gradcheck runs thousands of
-    tiny calls), and the suite's other workers share the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _data(shape, seed, dtype=torch.float64):

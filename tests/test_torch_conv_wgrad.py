@@ -18,6 +18,7 @@ from mmdyn_tpu_torch.models.vae import Decoder, conv_trunk
 from mmdyn_tpu_torch.ops import kernels
 from mmdyn_tpu_torch.problems import ProblemConfig, make_optimizer
 from mmdyn_tpu_torch.train import create_train_state, make_train_step
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (C_in, C_out, kernel, stride, padding, input side) of every layer of
 # conv_trunk (the encoders and the regressor) and Decoder.hallucinate
@@ -27,16 +28,6 @@ HALLUCINATE = [(256, 128, 4, 1, 0, 5), (128, 64, 4, 2, 1, 8), (64, 32, 4, 2, 1, 
                (32, 3, 4, 2, 1, 32)]
 CASES = [(False, g) for g in TRUNK] + [(True, g) for g in HALLUCINATE]
 IDS = [f"{'deconv' if t else 'conv'}{g[:5]}" for t, g in CASES]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one thread: the shapes are small, and the suite's other
-    workers share the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _geometry(module):

@@ -50,6 +50,7 @@ from mmdyn_tpu_torch.data.synthetic import make_compiled_arrays
 from mmdyn_tpu_torch.tools import elbo_parity, gold
 from mmdyn_tpu_torch.train.profiler import StepTimer
 from mmdyn_tpu_torch.utils.weights import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 SMALL = ["--n-seq", "16", "--batch", "8", "--latent", "16"]
@@ -60,16 +61,6 @@ CASES = {
     "regression": ["--problem", "regression"],
     "conditional": ["--problem", "seq_modeling", "--conditional"],
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The torch side of these runs on one thread: its batches are small,
-    and the suite's other workers share the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel(a, b):

@@ -37,6 +37,7 @@ from mmdyn_tpu_torch.problems import transforms as tt
 from mmdyn_tpu_torch.train import (create_train_state, make_eval_step,
                                    make_sample_fn, make_train_step)
 from mmdyn_tpu_torch.utils.weights import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LATENT, B, T, S, N_CLASSES = 16, 4, 3, 3, 5
 TOL = dict(rtol=1e-4, atol=1e-5)

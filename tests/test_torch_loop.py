@@ -27,6 +27,7 @@ from mmdyn_tpu_torch.train.checkpoint import (latest_checkpoint, restore_checkpo
                                               save_checkpoint)
 from mmdyn_tpu_torch.train.loop import Problem
 from mmdyn_tpu_torch.train.profiler import StepTimer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # 24 sequences: train 19 (4 batches of 4), test 4 (1 batch)
 N_SEQ = 24

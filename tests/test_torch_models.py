@@ -23,6 +23,7 @@ from mmdyn_tpu_torch.models import Regressor, count_parameters, setup_model
 from mmdyn_tpu_torch.models import vae as torch_vae
 from mmdyn_tpu_torch.models.layers import train_batch_norm
 from mmdyn_tpu_torch.utils.weights import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LATENT, B = 16, 4
 COND_DIM, N_CLASSES = 3, 5

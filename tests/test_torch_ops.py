@@ -20,6 +20,7 @@ from mmdyn_tpu.problems.reconstruction import SUBSETS_NO_POSE, SUBSETS_POSE
 from mmdyn_tpu_torch.ops import kernels as tk
 from mmdyn_tpu_torch.ops import losses as tl
 from mmdyn_tpu_torch.ops import poe as tpoe
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SUBSET_TABLES = {"no_pose": SUBSETS_NO_POSE, "pose": SUBSETS_POSE}
 

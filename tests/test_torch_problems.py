@@ -26,6 +26,7 @@ from mmdyn_tpu_torch.problems import ProblemConfig, anneal_kl, parse_batch
 from mmdyn_tpu_torch.problems import reconstruction as torch_recon
 from mmdyn_tpu_torch.problems import transforms as tt
 from mmdyn_tpu_torch.utils.weights import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LATENT, B, T = 16, 4, 3
 

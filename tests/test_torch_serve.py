@@ -50,6 +50,7 @@ from mmdyn_tpu_torch.serve.session import _infer_condition_dim
 from mmdyn_tpu_torch.train import create_train_state
 from mmdyn_tpu_torch.train.checkpoint import save_checkpoint
 from mmdyn_tpu_torch.utils.weights import bn_stats_from_jax, params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LATENT, B, COND = 8, 3, 3
 REPO = Path(__file__).resolve().parents[1]

@@ -40,6 +40,7 @@ from mmdyn_tpu_torch.sim.physics_torch import pack_scene
 from mmdyn_tpu_torch.sim.raycast_torch import RaycastTorch, capture_scene
 from mmdyn_tpu_torch.sim.shader import illumination_torch
 from mmdyn_tpu_torch.sim.tactile_torch import TactileRendererTorch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

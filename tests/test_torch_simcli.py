@@ -12,7 +12,7 @@ package's own CLI tests (``tests/test_physics_jax.py``,
   ``tests/test_torch_sim.py``'s bounds (``assert_frames_close``). The same
   for ``demo --device-render``.
 * PyBullet, through ``tests/fake_pybullet.py``: the port's ``demo`` and
-  ``exp_1 --engine pybullet`` make the JAX package's calls and dumps.
+  ``exp_{1,2,3} --engine pybullet`` make the JAX package's calls and dumps.
 * Without a card and without ``--platform cpu`` the device flags raise.
 """
 
@@ -28,6 +28,7 @@ import torch
 
 import tests.fake_pybullet as fake_pybullet
 from tests.test_torch_simrun import assert_frames_close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 BOTTLE_OBJ = REPO / "graphics/objects/winebottle/models/model_normalized.obj"
@@ -189,19 +190,32 @@ def sem_root(tmp_path):
     return root
 
 
-@pytest.mark.parametrize("cli", ["demo", "exp_1_flat_plane"])
+# the PyBullet runs' argv: test_pybullet_contract.py's demo and exp_1 runs;
+# exp_2 and exp_3 on exp_1's ShapeNetSem fixture, exp_3 long enough for three
+# snapshots after its first shocked step
+_SEM_ARGV = ["--engine", "pybullet", "--headless", "--category", "Bowl", "--trial_per_obj",
+             "1", "--interval", "10", "--fast-shading", "--seed", "3"]
+PYBULLET_ARGV = {
+    "demo": ["--engine", "pybullet", "--headless", "--n_timesteps", "30", "--interval", "10",
+             "--fast-shading"],
+    "exp_1_flat_plane": _SEM_ARGV + ["--n_timesteps", "30"],
+    "exp_2_inclined_plane": _SEM_ARGV + ["--n_timesteps", "30", "--slope", "0.2"],
+    "exp_3_force_pert": _SEM_ARGV + ["--n_timesteps", "140", "--snapshot_from", "110",
+                                     "--force", "0.05"],
+}
+
+
+@pytest.mark.parametrize("cli", list(PYBULLET_ARGV))
 def test_pybullet_path_under_the_fake_equals_jax(cli, sem_root, tmp_path, monkeypatch):
     """test_pybullet_contract.py's PyBullet runs of demo (the bundled
-    winebottle mesh) and exp_1 (the ShapeNetSem fixture): the port makes the
-    same pybullet calls and writes the same dump."""
+    winebottle mesh) and exp_1 (the ShapeNetSem fixture), and exp_2 (the
+    constrained tilted sensor, pinned again every step) and exp_3 (the
+    shocked movable sensor) on exp_1's fixture: the port makes the same
+    pybullet calls and writes the same dump."""
     monkeypatch.chdir(REPO)              # graphics/ resolves from the repo root
-    if cli == "demo":
-        argv = ["--engine", "pybullet", "--headless", "--n_timesteps", "30", "--interval",
-                "10", "--fast-shading"]
-    else:
-        argv = ["--engine", "pybullet", "--headless", "--dataset_dir", str(sem_root),
-                "--category", "Bowl", "--trial_per_obj", "1", "--n_timesteps", "30",
-                "--interval", "10", "--fast-shading", "--seed", "3"]
+    argv = PYBULLET_ARGV[cli]
+    if cli != "demo":
+        argv = argv + ["--dataset_dir", str(sem_root)]
     jax_main, port_main = _mains(cli)
     want = _run_under_fake(jax_main, argv + ["--logdir", str(tmp_path / "jax")])
     got = _run_under_fake(port_main, argv + ["--logdir", str(tmp_path / "port")])

@@ -44,6 +44,7 @@ from mmdyn_tpu_torch.sim import sample as tsample
 from mmdyn_tpu_torch.sim import sensor as tsensor
 from mmdyn_tpu_torch.sim.tactile_torch import TactileRendererTorch
 from mmdyn_tpu_torch.utils import wire as twire
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 REPO = Path(__file__).resolve().parents[1]

@@ -57,6 +57,7 @@ from mmdyn_tpu_torch.train import create_train_state
 from mmdyn_tpu_torch.train.checkpoint import save_checkpoint
 from mmdyn_tpu_torch.utils import training
 from mmdyn_tpu_torch.utils.weights import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LATENT = 8
 ATOL = 1e-4
