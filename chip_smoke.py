@@ -46,6 +46,18 @@ Phases, any failure raises and exits non-zero:
    bit for bit, rows 0, 0-16, 0-63 and 40 computed alone equal to the same
    rows in the batch; kernel (L2 flushed), plain-version and cuDNN
    deterministic times beside the operation bound.
+   The float32 convolutions' forward (``conv_fprop_f32``, TF32 tensor cores,
+   three products a term): 12 small geometries (ragged batches, odd sides,
+   odd channel counts, each channel tile) against the plain version in
+   float64 (rel 1e-5), a row alone equal to the same row in the batch; then
+   the 16 calls of one dyn_modeling step at 256 x 8 (the encoders' four
+   convolutions at 2,048 rows, the decoders' four transposed convolutions'
+   data gradients at 8,192) against float64 (rel 1e-5; cuDNN's deterministic
+   float32 call's gap and its TF32 gap beside it), two launches and a second
+   process bit for bit, rows alone equal to the same rows in the batch;
+   kernel, plain-version and cuDNN deterministic times beside two bounds
+   (its own, three TF32 products a term at 495 TFLOP/s, and 67 TFLOP/s
+   FFMA).
    BatchNorm + swish (``fused_bn_swish``) at the six site shapes of one
    dyn_modeling step (the encoders' at 2,048 rows, the decoders' at 8,192
    in 4 groups): every output (y, the statistics, dx, dweight, dbias)
@@ -75,8 +87,9 @@ Phases, any failure raises and exits non-zero:
    falling:
    (a) the seq flagship: cnn-mvae, visuotactile + pose, seq_modeling,
        latent 256, float32, batch 512; 5 steps, 1 PoE, 2 BCE, 16
-       ``conv_wgrad_f32`` and 14 ``conv_dgrad_f32`` launches each (8 and 7
-       for the cnn-vae of (c), none under ``bfloat16_full``), and 12
+       ``conv_wgrad_f32``, 14 ``conv_dgrad_f32`` and 16 ``conv_fprop_f32``
+       launches each (8, 7 and 8 for the cnn-vae of (c), none under
+       ``bfloat16_full``), and 12
        ``fused_bn_swish`` calls (6 for (c), none under ``bfloat16_full``);
        the determinism reading at batch
        512 and 128 (every
@@ -115,7 +128,8 @@ Phases, any failure raises and exits non-zero:
        on the run when Pillow imports.
    (g) serving (``mmdyn_tpu_torch.serve``) of (f)'s first run, no PoE or
        BCE launch (the JAX session has no kernel on this path either; the
-       decoders' transposed convolutions are ``conv_dgrad_f32``), no
+       encoders' convolutions are ``conv_fprop_f32``, the decoders'
+       transposed convolutions ``conv_dgrad_f32``), no
        Pillow: ``InferenceSession.from_run`` on the card against the same
        run on the CPU at batch 32 (probabilities atol 1e-4; mu, logvar and
        pose max gap over max |cpu| 1e-4; uint8 images at most 1 apart on at
@@ -127,7 +141,8 @@ Phases, any failure raises and exits non-zero:
        64; ``freeze_bn`` on 256 rows, a row served alone (padded to 64)
        equal to the same row inside a batch of 64 bit for bit;
        ``export_session`` / ``load_exported`` at batch 64, equal to
-       ``predict`` bit for bit, its call launching ``conv_dgrad_f32``; the
+       ``predict`` bit for bit, its call launching ``conv_dgrad_f32`` and
+       ``conv_fprop_f32``; the
        HTTP server on port 0 (/healthz, /predict at batch 1 and 64 timed,
        /rollout, /sample, and 8 concurrent clients through the micro-batcher
        on the frozen session, equal to their solo replies bit for bit); and
@@ -324,7 +339,7 @@ L2_FLUSH_BYTES = 64 << 20       # more than the 50 MB L2
 POE_REPLACES = "mmdyn_tpu/ops/kernels.py:110"   # _poe_reparam_pallas -> _poe_kernel
 BCE_REPLACES = "mmdyn_tpu/ops/kernels.py:247"   # _bce_pallas -> _bce_kernel(_nomask)
 PORT_KERNELS = ("poe_reparam", "bce_partial", "bce_final", "bn_swish_",   # device kernel names
-                "::dgrad_")
+                "::dgrad_", "::fprop_")
 CONV_KERNELS = ("fprop", "dgrad", "wgrad", "fft", "conv", "cgemm")   # by kernel name
 
 
@@ -965,6 +980,190 @@ def check_conv_dgrad(kernels, timer, dev, rel=1e-5):
             **total, "layers": rows, "geometries_rel_err": geometries_err}
 
 
+# the forwards of one dyn_modeling step at 256 x 8 (2,048 rows): the encoders'
+# four convolutions at 2,048 rows and the decoders' four transposed
+# convolutions' data gradients at 8,192 (4 subsets in one call, a transposed
+# convolution's data gradient being a convolution's forward of its output
+# gradient); x 2 encoders, x 2 decoders: 16 calls. WGRAD_LAYERS' tuples
+FPROP_CALLS = WGRAD_LAYERS
+FPROP_REPLACES = "none (XLA computes the JAX package's convolutions)"
+TF32_FLOP_PER_S = 495e12        # H100 SXM dense TF32 on the tensor cores
+# (C_in, C_out, stride, padding, x side, batch): small shapes, ragged batches
+# and odd sides, stride 1 and 2, padding 0 and 1, 3, 4 and odd input channels
+# (K ending inside a 32-row chunk), output channels off a multiple of 8 and
+# each channel tile (32, 64, 128, and 128 twice)
+FPROP_GEOMETRIES = (
+    (3, 5, 2, 1, 9, 3), (5, 3, 2, 1, 7, 1), (7, 9, 1, 0, 6, 1), (9, 7, 1, 1, 3, 5),
+    (4, 8, 1, 1, 5, 2), (8, 4, 2, 0, 4, 3), (3, 32, 2, 1, 64, 5), (33, 70, 2, 1, 17, 7),
+    (130, 200, 1, 0, 8, 9), (64, 130, 2, 1, 16, 3), (5, 33, 2, 0, 31, 4), (256, 128, 1, 1, 9, 2),
+)
+
+
+def check_fprop_geometries(kernels, dev, rel=1e-5):
+    """Every ``FPROP_GEOMETRIES`` case against the plain version in float64
+    (max gap within ``rel`` of the largest element), its first row alone
+    equal to the same row in the batch; returns the worst gap."""
+    worst = 0.0
+    for i, (c, n, s, p, side, batch) in enumerate(FPROP_GEOMETRIES):
+        g = torch.Generator(device=dev).manual_seed(600 + i)
+        x = torch.randn((batch, c, side, side), generator=g, device=dev)
+        w = torch.randn((n, c, 4, 4), generator=g, device=dev)
+        got = kernels._conv_fprop_cuda(x, w, s, p)
+        want = kernels.conv_fprop_plain(x.double(), w.double(), s, p)
+        err = float((got.double() - want).abs().max()) / float(want.abs().max())
+        alone = kernels._conv_fprop_cuda(x[:1].contiguous(), w, s, p)
+        if err > rel or not torch.equal(alone, got[:1]):
+            raise AssertionError(f"conv_fprop (C_in {c}, C_out {n}, stride {s}, padding {p}, "
+                                 f"side {side}, batch {batch}): rel err {err:.3g}, row alone "
+                                 f"equal {torch.equal(alone, got[:1])}")
+        worst = max(worst, err)
+    say(f"[3/6] conv_fprop on {len(FPROP_GEOMETRIES)} small geometries: max rel err vs "
+        f"float64 {worst:.3g}, rows alone == in the batch")
+    return worst
+
+
+def fprop_case(layer, dev, seed):
+    """(x, weight) of the layer's forward call on the card, drawn from
+    ``seed``: a convolution's input and weight, or a transposed
+    convolution's output gradient and its weight (C_in, C_out, 4, 4)."""
+    _, transposed, c_in, c_out, s, p, side, rows = layer
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if transposed:
+        out = (side - 1) * s - 2 * p + 4
+        x = torch.randn((rows, c_out, out, out), generator=g, device=dev)
+        w = torch.randn((c_in, c_out, 4, 4), generator=g, device=dev) / math.sqrt(c_out * 16)
+    else:
+        x = torch.randn((rows, c_in, side, side), generator=g, device=dev)
+        w = torch.randn((c_out, c_in, 4, 4), generator=g, device=dev) / math.sqrt(c_in * 16)
+    return x, w
+
+
+def fprop_hashes():
+    """The kernel's output of every ``FPROP_CALLS`` case from its seed, as
+    sha256 of its bytes; run in a second process by ``check_conv_fprop``."""
+    import hashlib
+
+    sys.path.insert(0, str(REPO))
+    from mmdyn_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    out = []
+    for i, layer in enumerate(FPROP_CALLS):
+        x, w = fprop_case(layer, dev, 300 + i)
+        y = kernels._conv_fprop_cuda(x, w, layer[4], layer[5])
+        out.append(hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest())
+    return out
+
+
+def library_fprop(layer, x, w, tf32=False):
+    """cuDNN's call for the layer's forward, as the step made it before the
+    kernel, with its deterministic algorithms: a convolution's forward
+    (``F.conv2d``), a transposed convolution's data gradient
+    (``aten.convolution_backward`` for the input alone); in TF32 where
+    ``tf32``. A yardstick, which the port never calls."""
+    import torch.nn.functional as F
+
+    _, transposed, *_ = layer
+    s, p = layer[4], layer[5]
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        with deterministic_cudnn(True):
+            if not transposed:
+                return F.conv2d(x, w, None, s, p)
+            side = [(v + 2 * p - 4) // s + 1 for v in x.shape[2:]]   # the deconv's input
+            inp = torch.empty((x.shape[0], w.shape[0], *side), device=x.device)
+            return torch.ops.aten.convolution_backward(
+                x, inp, w, None, [s, s], [p, p], [1, 1], True, [0, 0], 1,
+                (True, False, False))[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def check_conv_fprop(kernels, timer, dev, rel=1e-5):
+    """The forward kernel at the 16 calls of one dyn_modeling step at 256 x 8
+    (``FPROP_CALLS``, each twice): against the plain version in float64 on
+    the card (max |kernel - plain| within ``rel`` of max |plain|; cuDNN's
+    deterministic float32 call's gap and its TF32 gap beside it), two
+    launches bit for bit, a second process's launches bit for bit, and the
+    first rows of each batch computed alone and in batches of ``DGRAD_ROWS``
+    bit for bit (and ``check_fprop_geometries``); timed (kernel, the plain
+    version in float32, cuDNN's deterministic call as the library call)
+    beside two bounds: ``bound_ms``, the kernel's own, three TF32 products of
+    2 * M * N * K operations at 495 TFLOP/s, and ``ffma_bound_ms``, 2 * M *
+    N * K at 67 TFLOP/s (FFMA, the float32 convolutions' other kernels'
+    bound)."""
+    hashes = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.fprop_hashes()))"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if hashes.returncode != 0:
+        raise AssertionError(f"conv_fprop second process failed:\n{hashes.stderr[-4000:]}")
+    theirs = json.loads(hashes.stdout.strip().splitlines()[-1])
+    ours = fprop_hashes()
+    if ours != theirs:
+        raise AssertionError(f"conv_fprop differs across processes: {ours} vs {theirs}")
+    geometries_err = check_fprop_geometries(kernels, dev, rel)
+    rows, total = [], {"ms": 0.0, "bound_ms": 0.0, "ffma_bound_ms": 0.0, "library_ms": 0.0,
+                       "plain_ms": 0.0}
+    for i, layer in enumerate(FPROP_CALLS):
+        name, transposed, *_, s, p, _, n_rows = layer
+        x, w = fprop_case(layer, dev, 300 + i)
+        call = lambda a: kernels._conv_fprop_cuda(a, w, s, p)  # noqa: E731
+        got, again = call(x), call(x)
+        if not torch.equal(got, again):
+            raise AssertionError(f"conv_fprop {name} differs between two launches")
+        for b in DGRAD_ROWS:
+            if not torch.equal(call(x[:b].contiguous()), got[:b]):
+                raise AssertionError(f"conv_fprop {name}: rows 0-{b - 1} alone differ from "
+                                     f"the same rows in the batch of {n_rows}")
+        if not torch.equal(call(x[40:41].contiguous()), got[40:41]):
+            raise AssertionError(f"conv_fprop {name}: row 40 alone differs from the batch")
+        want = kernels.conv_fprop_plain(x.double(), w.double(), s, p)
+        scale = float(want.abs().max())
+        err = float((got.double() - want).abs().max()) / scale
+        lib_err = float((library_fprop(layer, x, w).double() - want).abs().max()) / scale
+        tf32_err = float((library_fprop(layer, x, w, True).double() - want).abs().max()) / scale
+        del want
+        if err > rel:
+            raise AssertionError(f"conv_fprop {name}: max |kernel - float64| / max |float64| "
+                                 f"{err:.3g} > {rel:g} (cuDNN {lib_err:.3g}, TF32 {tf32_err:.3g})")
+        n, k = w.shape[0], w.shape[1] * 16
+        m = got[:, 0].numel()
+        flops = 2 * m * n * k
+        row = {"layer": name, "transposed": transposed, "rows": n_rows, "M": m, "N": n, "K": k,
+               "tile_n": 32 if n <= 32 else 64 if n <= 64 else 128,   # conv_fprop.cu's tile_n
+               "gflop": flops / 1e9, "rel_err": err, "library_rel_err": lib_err,
+               "tf32_rel_err": tf32_err,
+               "ms": timer(lambda: call(x)),
+               "plain_ms": events_ms(lambda: kernels.conv_fprop_plain(x, w, s, p)),
+               "library_ms": events_ms(lambda: library_fprop(layer, x, w)),
+               "bound_ms": 3 * flops / TF32_FLOP_PER_S * 1e3,
+               "ffma_bound_ms": bound(0, flops)[0]}
+        rows.append(row)
+        for key in total:
+            total[key] += row[key] * 2          # two encoders, two decoders
+        say(f"[3/6] conv_fprop {name} {'data gradient' if transposed else 'forward'} at "
+            f"{n_rows} rows (M {m}, N {n}, K {k}, {flops / 1e9:.1f} GFLOP): {row['ms']:.4f} ms "
+            f"({row['bound_ms'] / row['ms']:.1%} of the three-product TF32 bound "
+            f"{row['bound_ms']:.4f} ms, {row['ffma_bound_ms'] / row['ms']:.1%} of the FFMA "
+            f"bound {row['ffma_bound_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, cuDNN "
+            f"deterministic {row['library_ms']:.4f} ms; rel err vs float64 {err:.3g} (cuDNN "
+            f"float32 {lib_err:.3g}, cuDNN TF32 {tf32_err:.3g}); bit-identical reruns, rows "
+            f"alone == in batches of {DGRAD_ROWS}")
+        del x, w, got, again
+        torch.cuda.empty_cache()
+    say(f"[3/6] conv_fprop ok, bit-identical across two processes; the 16 forwards of a dyn "
+        f"step: {total['ms']:.3f} ms ({total['bound_ms'] / total['ms']:.1%} of the "
+        f"three-product TF32 bound {total['bound_ms']:.3f} ms, "
+        f"{total['ffma_bound_ms'] / total['ms']:.1%} of the FFMA bound "
+        f"{total['ffma_bound_ms']:.3f} ms), cuDNN deterministic "
+        f"{total['library_ms']:.3f} ms, plain {total['plain_ms']:.3f} ms")
+    return {"name": "conv_fprop_f32", "route": "cuda",
+            "source": "mmdyn_tpu_torch/ops/csrc/conv_fprop.cu", "replaces": FPROP_REPLACES,
+            **total, "layers": rows, "geometries_rel_err": geometries_err}
+
+
 # the BatchNorm + swish sites of one dyn_modeling step at 256 x 8 (2,048
 # rows): each encoder's trunk at 2,048 rows, each decoder's trunk at 8,192 (4
 # subsets, statistics per subset); x 2 encoders, x 2 decoders. (site, shape,
@@ -1119,6 +1318,7 @@ def reset_counters(kernels):
     kernels.fused_masked_bce_sum.launches_bf16 = 0
     kernels.conv_wgrad_f32.launches = 0
     kernels.conv_dgrad_f32.launches = 0
+    kernels.conv_fprop_f32.launches = 0
     kernels.fused_bn_swish.launches = 0
 
 
@@ -1305,14 +1505,16 @@ def check_bf16_rounding(cfg, b=32):
 
 def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_steps=0,
              top=40, determinism_rows=(), wgrad_per_step=16, dgrad_per_step=14,
-             bn_swish_per_step=12):
+             fprop_per_step=16, bn_swish_per_step=12):
     """One path on the card: ``steps`` train steps on one synthetic batch
     (the first also warms up, the others are timed), the kernel counters set
     to 0 just before and read just after and held to ``per_step`` launches
     per step, ``conv_wgrad_f32`` to ``wgrad_per_step`` under float32 (two
     encoders and two decoders of 4 convolutions; none under the bf16
     policies), ``conv_dgrad_f32`` to ``dgrad_per_step`` under float32 (3 an
-    encoder, 4 a decoder; none under the bf16 policies) and
+    encoder, 4 a decoder; none under the bf16 policies), ``conv_fprop_f32``
+    to ``fprop_per_step`` under float32 (4 an encoder, 4 a decoder; none
+    under the bf16 policies) and
     ``fused_bn_swish`` to ``bn_swish_per_step`` under float32
     activations (3 an encoder, 3 a decoder; none under ``bfloat16_full``),
     losses finite and falling; then
@@ -1337,6 +1539,7 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     launches = read_counters(kernels)
     wgrad = kernels.conv_wgrad_f32.launches
     dgrad = kernels.conv_dgrad_f32.launches
+    fprop = kernels.conv_fprop_f32.launches
     bn_swish = kernels.fused_bn_swish.launches
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
@@ -1345,15 +1548,18 @@ def run_path(label, cfg, kernels, card, per_step, seq_len=2, steps=5, profile_st
     want["bce_sum_bf16"] = want["bce_sum"] if cfg.compute_dtype == "bfloat16_full" else 0
     want_wgrad = wgrad_per_step * steps if cfg.compute_dtype == "float32" else 0
     want_dgrad = dgrad_per_step * steps if cfg.compute_dtype == "float32" else 0
+    want_fprop = fprop_per_step * steps if cfg.compute_dtype == "float32" else 0
     want_bn = bn_swish_per_step * steps if cfg.compute_dtype != "bfloat16_full" else 0
     if (launches != want or wgrad != want_wgrad or dgrad != want_dgrad
-            or bn_swish != want_bn):
+            or fprop != want_fprop or bn_swish != want_bn):
         raise AssertionError(f"{label}: kernel launches {launches}, conv_wgrad {wgrad}, "
-                             f"conv_dgrad {dgrad}, bn_swish {bn_swish} over {steps} steps, "
-                             f"expected {want}, conv_wgrad {want_wgrad}, conv_dgrad "
-                             f"{want_dgrad}, bn_swish {want_bn}")
+                             f"conv_dgrad {dgrad}, conv_fprop {fprop}, bn_swish {bn_swish} "
+                             f"over {steps} steps, expected {want}, conv_wgrad {want_wgrad}, "
+                             f"conv_dgrad {want_dgrad}, conv_fprop {want_fprop}, bn_swish "
+                             f"{want_bn}")
     launches["conv_wgrad_f32"] = wgrad
     launches["conv_dgrad_f32"] = dgrad
+    launches["conv_fprop_f32"] = fprop
     launches["fused_bn_swish"] = bn_swish
     dyn = cfg.problem_type == "dyn_modeling"
     frames = cfg.batchsize * (seq_len if dyn else 1)
@@ -2023,8 +2229,9 @@ def serve_path(kernels, card, tmp):
     visuotactile + pose, latent 256, float32), with the kernel counters set
     to 0 just before and read just after: the PoE and BCE counters must read
     0, as the JAX session fuses with the plain product of experts and has no
-    loss. The decoders' transposed convolutions run ``conv_dgrad_f32``, in
-    the exported artifact too, which must equal ``predict`` bit for bit."""
+    loss. The encoders' convolutions run ``conv_fprop_f32`` and the decoders'
+    transposed convolutions ``conv_dgrad_f32``, in the exported artifact too,
+    which must equal ``predict`` bit for bit."""
     from mmdyn_tpu_torch.cli import infer as cli_infer
     from mmdyn_tpu_torch.serve import InferenceSession, export_session, load_exported
 
@@ -2065,17 +2272,19 @@ def serve_path(kernels, card, tmp):
     manifest = export_session(session, tmp / "artifact", batch_size=64,
                               modalities=tuple(sorted(x)))
     export_s = time.perf_counter() - t0
-    before = kernels.conv_dgrad_f32.launches
+    before = kernels.conv_dgrad_f32.launches, kernels.conv_fprop_f32.launches
     art = load_exported(tmp / "artifact")(**x64)
-    art_dgrad = kernels.conv_dgrad_f32.launches - before
+    art_dgrad = kernels.conv_dgrad_f32.launches - before[0]
+    art_fprop = kernels.conv_fprop_f32.launches - before[1]
     live = session.predict(**x64)
     export_gap = max(float((art[k] - live[k]).abs().max()) for k in manifest["outputs"])
-    if manifest["platforms"] != [session.device.type] or export_gap != 0.0 or not art_dgrad:
+    if (manifest["platforms"] != [session.device.type] or export_gap != 0.0 or not art_dgrad
+            or not art_fprop):
         raise AssertionError(f"(g) export: {manifest['platforms']}, gap {export_gap!r}, "
-                             f"conv_dgrad launches {art_dgrad}")
+                             f"conv_dgrad launches {art_dgrad}, conv_fprop {art_fprop}")
     say(f"[5/6] (g) export_session at batch 64 in {export_s:.2f} s; load_exported's "
         f"outputs {manifest['outputs']} equal predict's bit for bit; the artifact's call "
-        f"launched conv_dgrad {art_dgrad} times")
+        f"launched conv_dgrad {art_dgrad} times and conv_fprop {art_fprop} times")
 
     http = check_http(session, frozen, x)
     cli = cli_infer.main(["--run", str(run), "--export", str(tmp / "cli_artifact")])
@@ -4217,6 +4426,7 @@ def main():
     entries.append(check_bce_bf16(kernels, timer, dev, entries[1]))
     entries.append(check_conv_wgrad(kernels, timer, dev))
     entries.append(check_conv_dgrad(kernels, timer, dev))
+    entries.append(check_conv_fprop(kernels, timer, dev))
     entries.append(check_bn_swish(kernels, timer, dev))
     one = torch.zeros(1, device=dev)
     say(f"[3/6] timer floor: a one-float zero_() reads {timer(one.zero_):.5f} ms "
@@ -4255,7 +4465,7 @@ def main():
                                  seq_len=8, profile_steps=2, top=25),
         "cnn-vae": run_path("(c) cnn-vae", vae, kernels, card,
                             {"poe_reparam": 0, "bce_sum": 0}, wgrad_per_step=8,
-                            dgrad_per_step=7, bn_swish_per_step=6),
+                            dgrad_per_step=7, fprop_per_step=8, bn_swish_per_step=6),
         "seq_bf16_full": run_path("(d) seq flagship", dataclasses.replace(
             flag, compute_dtype="bfloat16_full"), kernels, card, mvae_per_step,
             profile_steps=3, determinism_rows=(512, 128)),
@@ -4279,7 +4489,8 @@ def main():
         refcfg = refcfg_path(card, Path(tmp))
 
     for e in entries:
-        if e["name"] in ("conv_wgrad_f32", "conv_dgrad_f32", "fused_bn_swish"):   # (a)-(e)
+        if e["name"] in ("conv_wgrad_f32", "conv_dgrad_f32", "conv_fprop_f32",
+                         "fused_bn_swish"):                                # (a)-(e)
             e["launches"] = paths["dyn_modeling"]["launches"][e["name"]]
             e["launches_by_path"] = {name: p["launches"][e["name"]]
                                      for name, p in paths.items()}

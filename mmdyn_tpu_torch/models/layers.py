@@ -38,14 +38,13 @@ form is here:
   activation policy (``compute_dtype``, JAX ``layers.py:201-227``):
 
   - ``float32``: a convolution runs through ``_ConvF32``: the forward of a
-    ``Conv2d`` and the data gradient of a ``ConvTranspose2d`` are torch's
-    calls (cuDNN's on the card); the data gradient of a ``Conv2d`` and the
-    forward of a ``ConvTranspose2d`` are ``ops.kernels.conv_dgrad_f32``, and
+    ``Conv2d`` and the data gradient of a ``ConvTranspose2d`` are
+    ``ops.kernels.conv_fprop_f32``; the data gradient of a ``Conv2d`` and
+    the forward of a ``ConvTranspose2d`` are ``ops.kernels.conv_dgrad_f32``;
     every weight gradient is ``ops.kernels.conv_wgrad_f32`` (on the card
     hand-written kernels that sum in a fixed order; on the CPU their plain
     versions). Their geometry is the cnn models' (4 x 4 kernels, stride 1 or
-    2, padding 0 or 1): a transposed convolution of any other raises in its
-    forward, a convolution in its backward.
+    2, padding 0 or 1): a convolution of any other raises in its forward.
   - ``bfloat16``: the input and the weight are cast to bf16 for the product
     (the tensor cores accumulate in float32), the output is upcast to
     float32, and the bias is added in float32.
@@ -67,7 +66,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmdyn_tpu_torch.config import BN_EPS
-from mmdyn_tpu_torch.ops.kernels import conv_dgrad_f32, conv_wgrad_f32, fused_bn_swish
+from mmdyn_tpu_torch.ops.kernels import (conv_dgrad_f32, conv_fprop_f32, conv_wgrad_f32,
+                                          fused_bn_swish)
 from mmdyn_tpu_torch.parallel.mesh import active_mesh, global_draw, var_mean
 
 POLICIES = ("float32", "bfloat16", "bfloat16_full")
@@ -285,13 +285,13 @@ class Linear(nn.Linear):
 
 
 class _ConvF32(torch.autograd.Function):
-    """A float32 convolution, transposed or not. The data gradient of a
-    convolution and the forward of a transposed one (the same sum) are
-    ``conv_dgrad_f32``, every weight gradient is ``conv_wgrad_f32``; the
-    forward of a convolution, the data gradient of a transposed one and the
-    bias gradient are the calls autograd makes without it (``F.conv2d`` and
-    ``aten.convolution_backward``: cuDNN's on the card). The bias of a
-    transposed convolution is added after the kernel."""
+    """A float32 convolution, transposed or not. The forward of a
+    convolution and the data gradient of a transposed one (the same sum) are
+    ``conv_fprop_f32``; the data gradient of a convolution and the forward of
+    a transposed one are ``conv_dgrad_f32``; every weight gradient is
+    ``conv_wgrad_f32``; the bias gradient is the call autograd makes without
+    it (``aten.convolution_backward``). The bias is added after the
+    kernel."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, transposed, stride, padding, output_padding,
@@ -300,7 +300,8 @@ class _ConvF32(torch.autograd.Function):
         ctx.conv = (transposed, stride, padding, output_padding, dilation, groups)
         ctx.bias_sizes = None if bias is None else list(bias.shape)
         if not transposed:
-            return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+            y = conv_fprop_f32(x, weight, stride, padding, dilation, groups)
+            return _with_bias(y, bias, 2)
         size = [(n - 1) * s - 2 * p + k + o for n, s, p, k, o in zip(
             x.shape[2:], stride, padding, weight.shape[2:], output_padding)]
         y = conv_dgrad_f32(x, weight, size, stride, padding, dilation, groups)
@@ -312,16 +313,16 @@ class _ConvF32(torch.autograd.Function):
         transposed, stride, padding, output_padding, dilation, groups = ctx.conv
         dx = dw = db = None
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        g = grad.contiguous()          # the decoders' last one arrives as an NHWC view
         if need_x and not transposed:
-            dx = conv_dgrad_f32(grad, weight, x.shape[2:], stride, padding, dilation, groups)
-        rest = (need_x and transposed, False, need_b)
-        if any(rest):
-            dx_t, _, db = torch.ops.aten.convolution_backward(
+            dx = conv_dgrad_f32(g, weight, x.shape[2:], stride, padding, dilation, groups)
+        if need_x and transposed:
+            dx = conv_fprop_f32(g, weight, stride, padding, dilation, groups)
+        if need_b:
+            db = torch.ops.aten.convolution_backward(
                 grad, x, weight, ctx.bias_sizes, stride, padding, dilation, transposed,
-                output_padding, groups, rest)
-            dx = dx_t if transposed else dx
+                output_padding, groups, (False, False, True))[2]
         if need_w:
-            g = grad.contiguous()      # the decoders' last one arrives as an NHWC view
             # a transposed convolution's weight gradient is the convolution's
             # with the roles of input and output swapped
             pair = (g, x) if transposed else (x, g)

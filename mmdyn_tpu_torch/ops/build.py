@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("poe_reparam", "bce_sum", "conv_wgrad", "bn_swish", "conv_dgrad")
+SOURCES = ("poe_reparam", "bce_sum", "conv_wgrad", "bn_swish", "conv_dgrad", "conv_fprop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -110,6 +110,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv_dgrad_f32_workspace.restype = i32
         lib.conv_dgrad_f32.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         lib.conv_dgrad_f32.restype = i32
+    elif name == "conv_fprop":
+        lib.conv_fprop_f32_workspace.argtypes = [i32, i32]
+        lib.conv_fprop_f32_workspace.restype = i64
+        lib.conv_fprop_f32.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+        lib.conv_fprop_f32.restype = i32
     elif name == "bn_swish":
         lib.bn_swish_pieces.argtypes = [i32, i32]
         lib.bn_swish_pieces.restype = i32

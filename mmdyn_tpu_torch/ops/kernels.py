@@ -1,7 +1,8 @@
 """The two fused kernels of the subset-ELBO step, each with its plain PyTorch
-version, its ``torch.autograd.Function`` and a launch counter; the weight and
-data gradients of the cnn models' float32 convolutions, each with its plain
-version and a launch counter; and the cnn trunks' BatchNorm + swish, likewise.
+version, its ``torch.autograd.Function`` and a launch counter; the forward,
+weight and data gradients of the cnn models' float32 convolutions, each with
+its plain version and a launch counter; and the cnn trunks' BatchNorm + swish,
+likewise.
 
 ``fused_poe_reparam`` — product-of-experts posterior of all K modality subsets
 plus the reparameterised sample, in one pass.
@@ -94,11 +95,35 @@ data gradient, its weight read as (C_in, C_out, 4, 4)).
     order, so the bits depend on neither the batch nor the tile, which
     follows the shapes alone.
   * A custom operator (``mmdyn::conv_dgrad``) with a fake and autograd (the
-    gradient to ``dy`` is the convolution's forward, to the weight
-    ``conv_wgrad_f32``), so that ``torch.export`` records it as one node and
-    an exported artifact runs the kernel. ``models/layers.py`` calls it from
-    the forward of the float32 ``ConvTranspose2d`` and the backward of the
-    float32 ``Conv2d``.
+    gradient to ``dy`` is the convolution's forward, ``conv_fprop_f32``, to
+    the weight ``conv_wgrad_f32``), so that ``torch.export`` records it as one
+    node and an exported artifact runs the kernel. ``models/layers.py`` calls
+    it from the forward of the float32 ``ConvTranspose2d`` and the backward of
+    the float32 ``Conv2d``.
+
+``conv_fprop_f32`` — the forward of a float32 convolution of the same
+geometry: the encoders' convolutions, and the decoders' transposed-
+convolution data gradients (a transposed convolution's data gradient is a
+convolution's forward of its output gradient, its weight read as (C_out,
+C_in, 4, 4) of that convolution).
+  * Replaces no TPU kernel (XLA computes the JAX package's convolutions);
+    CUDA source ``csrc/conv_fprop.cu``. Added because cuDNN's float32 forward
+    ran on FFMA: 33.1 ms of a 140 ms dyn_modeling step at 256 x 8.
+  * Bound: the 16 calls of that step on the TF32 tensor cores, three
+    products a term, 3.87 TFLOP, 7.8 ms at 495 TFLOP/s (their 1.29 TFLOP
+    would take 19.2 ms on FFMA at 67 TFLOP/s).
+  * Design: each operand split into a TF32 high part and a TF32 residual;
+    hi*hi + hi*lo + lo*hi on ``wgmma`` into a fresh fragment for every 32
+    terms of K, each added into a float32 accumulator with a rounded add, so
+    the result is float32-accurate (the source's header). The weight is split
+    once per call into a workspace laid out as the kernel's stages, the input
+    gathered per tile with zero fill. No split-K and no atomics; the tile
+    follows N alone, and every tile sums each output in the same order, so
+    the bits depend on neither the batch nor the tile.
+  * A custom operator (``mmdyn::conv_fprop``) with a fake and autograd (the
+    gradient to x is ``conv_dgrad_f32``, to the weight ``conv_wgrad_f32``).
+    ``models/layers.py`` calls it from the forward of the float32 ``Conv2d``
+    and the backward of the float32 ``ConvTranspose2d``.
 
 ``fused_bn_swish`` — train-mode BatchNorm (statistics per (group, channel))
 followed by swish on float32 activations, with its closed-form backward.
@@ -343,7 +368,7 @@ fused_masked_bce_sum.launches_bf16 = 0     # those of them with bf16 logits
 
 
 # ---------------------------------------------------------------------------
-# weight and data gradients of the float32 convolutions
+# forward, weight and data gradients of the float32 convolutions
 # ---------------------------------------------------------------------------
 
 CONV_TAPS = 4               # the kernels' height and width
@@ -357,10 +382,10 @@ def _square(name, v):
 
 
 def _check_conv_geometry(fn, kernel_size, stride, padding, dilation=1, groups=1):
-    """(stride, padding) of a convolution that ``conv_wgrad_f32`` and
-    ``conv_dgrad_f32`` (named ``fn`` in the error) take: a 4 x 4 kernel,
-    stride 1 or 2, padding 0 or 1, dilation 1, groups 1, the same on both
-    axes; raises on any other."""
+    """(stride, padding) of a convolution that ``conv_fprop_f32``,
+    ``conv_wgrad_f32`` and ``conv_dgrad_f32`` (named ``fn`` in the error)
+    take: a 4 x 4 kernel, stride 1 or 2, padding 0 or 1, dilation 1, groups 1,
+    the same on both axes; raises on any other."""
     k = _square("kernel_size", kernel_size)
     s, p = _square("stride", stride), _square("padding", padding)
     d = _square("dilation", dilation)
@@ -493,12 +518,12 @@ def _conv_dgrad_setup(ctx, inputs, output):
 
 def _conv_dgrad_grad(ctx, g):
     """The data gradient is linear in dy and in the weight: its gradient to dy
-    is the convolution's forward of ``g``, to the weight the convolution's
-    weight gradient with ``g`` as the input and dy as the output's
-    gradient."""
+    is the convolution's forward of ``g`` (``conv_fprop_f32``), to the weight
+    the convolution's weight gradient with ``g`` as the input and dy as the
+    output's gradient."""
     dy, weight = ctx.saved_tensors
     s, p = ctx.geometry
-    ddy = F.conv2d(g, weight, None, s, p) if ctx.needs_input_grad[0] else None
+    ddy = conv_fprop_f32(g, weight, s, p) if ctx.needs_input_grad[0] else None
     dw = (conv_wgrad_f32(g.contiguous(), dy.contiguous(), CONV_TAPS, s, p)
           if ctx.needs_input_grad[1] else None)
     return ddy, dw, None, None, None
@@ -529,6 +554,99 @@ def conv_dgrad_f32(dy, weight, input_size, stride, padding, dilation=1, groups=1
 
 
 conv_dgrad_f32.launches = 0
+
+
+def conv_fprop_plain(x, weight, stride, padding):
+    """Y[b, n, oh, ow] = sum over (c, kh, kw) of weight[n, c, kh, kw] *
+    x[b, c, oh * stride - padding + kh, ow * stride - padding + kw], as torch
+    computes it (``F.conv2d``, oneDNN's on the CPU), in the inputs' dtype. The
+    kernel's sum, three TF32 products a term, has no counterpart in plain
+    operations; the CPU's own convolution keeps the CPU paths' numbers and
+    speed where they were."""
+    return F.conv2d(x, weight, None, stride, padding)
+
+
+def _conv_fprop_cuda(x, weight, stride, padding):
+    for name, t in (("x", x), ("weight", weight)):
+        _require_cuda(name, t, x.device)
+    b, c, h, w = x.shape
+    n = weight.shape[0]
+    ho, wo = ((v + 2 * padding - CONV_TAPS) // stride + 1 for v in (h, w))
+    y = torch.empty((b, n, ho, wo), device=x.device, dtype=torch.float32)
+    if y.numel() == 0 or c == 0:
+        return y.zero_()
+    # the kernel's offsets into x and y are 32-bit
+    _require(max(x.numel(), y.numel()) < 2 ** 31,
+             f"conv_fprop_f32: x {tuple(x.shape)} and y {tuple(y.shape)} must each hold "
+             f"under 2^31 elements")
+    lib = build.load("conv_fprop")
+    # the weight's TF32 hi and lo parts, laid out for the kernel's tile
+    ws = torch.empty(lib.conv_fprop_f32_workspace(n, c * CONV_TAPS ** 2),
+                     device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(lib.conv_fprop_f32(
+        x.data_ptr(), weight.data_ptr(), ws.data_ptr(), y.data_ptr(), b, c, h, w, n, ho, wo,
+        stride, padding, stream), "conv_fprop launch")
+    conv_fprop_f32.launches += 1
+    return y
+
+
+@torch.library.custom_op("mmdyn::conv_fprop", mutates_args=())
+def _conv_fprop_op(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                   padding: int) -> torch.Tensor:
+    """Y (B, N, H_out, W_out) from x (B, C, H, W) and the weight (N, C, 4,
+    4)."""
+    fn = conv_fprop_plain if _on_cpu(x) else _conv_fprop_cuda
+    return fn(x.contiguous(), weight.contiguous(), stride, padding)
+
+
+@_conv_fprop_op.register_fake
+def _(x, weight, stride, padding):
+    out = [(v + 2 * padding - CONV_TAPS) // stride + 1 for v in x.shape[2:]]
+    return x.new_empty((x.shape[0], weight.shape[0], *out))
+
+
+def _conv_fprop_setup(ctx, inputs, output):
+    x, weight, stride, padding = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.geometry = (stride, padding)
+
+
+def _conv_fprop_grad(ctx, g):
+    """The convolution's data gradient (``conv_dgrad_f32``) and weight
+    gradient (``conv_wgrad_f32``) of ``g``."""
+    x, weight = ctx.saved_tensors
+    s, p = ctx.geometry
+    g = g.contiguous()
+    dx = (conv_dgrad_f32(g, weight, x.shape[2:], s, p)
+          if ctx.needs_input_grad[0] else None)
+    dw = conv_wgrad_f32(x, g, CONV_TAPS, s, p) if ctx.needs_input_grad[1] else None
+    return dx, dw, None, None
+
+
+_conv_fprop_op.register_autograd(_conv_fprop_grad, setup_context=_conv_fprop_setup)
+
+
+def conv_fprop_f32(x, weight, stride, padding, dilation=1, groups=1):
+    """The forward Y (B, N, H_out, W_out) of the convolution of x (B, C, H, W)
+    by weight (N, C, 4, 4), without bias; equally the data gradient of the
+    transposed convolution whose weight is ``weight`` (read as (C_in, C_out,
+    4, 4)) and whose output gradient is x. The CUDA kernel (TF32 tensor
+    cores, three products a term, float32 sums) for float32 CUDA tensors,
+    the plain version for CPU tensors, through the custom operator
+    ``mmdyn::conv_fprop``; differentiable in x and the weight. Raises outside
+    ``_check_conv_geometry``'s geometry."""
+    s, p = _check_conv_geometry("conv_fprop_f32", weight.shape[2:], stride, padding,
+                                dilation, groups)
+    _require(x.dim() == 4 and weight.dim() == 4 and x.shape[1] == weight.shape[1],
+             f"x (B, C, H, W) and weight (N, C, 4, 4) expected, got {tuple(x.shape)} and "
+             f"{tuple(weight.shape)}")
+    _require(all(v + 2 * p >= CONV_TAPS for v in x.shape[2:]),
+             f"x: spatial {tuple(x.shape[2:])} smaller than the kernel at padding {p}")
+    return _conv_fprop_op(x, weight, s, p)
+
+
+conv_fprop_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ size into a self-contained directory:
 only torch, the serialized program and the port's custom operators
 (``ops/kernels.py`` registers them: a model in BatchNorm mode ``batch``
 exports each BatchNorm + swish as ``mmdyn::bn_swish``, and a float32 model
-each transposed convolution as ``mmdyn::conv_dgrad``). A ``sample``
+each convolution as ``mmdyn::conv_fprop`` and each transposed convolution as
+``mmdyn::conv_dgrad``). A ``sample``
 artifact takes its noise as an input (the posterior's shape), never a
 generator. The program runs on the device type it was exported on
 (``manifest["platforms"]``).

@@ -131,9 +131,9 @@ class InferenceSession:
             # batch can rerun to other last bits. A serving session must
             # rerun bit for bit (and its graph equal its eager call), so on
             # the card it selects cuDNN's deterministic algorithms for the
-            # convolutions cuDNN runs, for the process (the float32
-            # transposed ones are ``ops.kernels.conv_dgrad_f32``, which sums
-            # in a fixed order).
+            # convolutions cuDNN runs, for the process (the float32 ones are
+            # ``ops.kernels.conv_fprop_f32`` and, transposed,
+            # ``conv_dgrad_f32``, which sum in a fixed order).
             torch.backends.cudnn.deterministic = True
         self.cfg = cfg
         self.norms = norms or {}  # dataset min-max constants (norms.json)

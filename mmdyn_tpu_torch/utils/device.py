@@ -77,11 +77,12 @@ def cudnn_deterministic(fn, device):
     cuDNN's default algorithms for the convolutions' data and weight
     gradients, and for the decoders' transposed-convolution forwards (a data
     gradient in cuDNN's terms), sum in an order that changes from call to
-    call; those passes are the port's own kernels
-    (``models/layers.py::_ConvF32``: ``conv_wgrad_f32``, ``conv_dgrad_f32``),
-    which sum in a fixed order. What cuDNN still runs (the convolutions'
-    forwards, the transposed convolutions' data gradients and the bias
-    gradients) runs its deterministic algorithms under this setting. The
+    call; those passes, and the convolutions' forwards and the transposed
+    convolutions' data gradients, are the port's own kernels
+    (``models/layers.py::_ConvF32``: ``conv_wgrad_f32``, ``conv_dgrad_f32``,
+    ``conv_fprop_f32``), which sum in a fixed order. What cuDNN still runs
+    (the bias gradients) runs its deterministic algorithms under this
+    setting. The
     bf16 policies' default algorithms rerun bit for bit already, and there
     the setting costs nothing. The backward runs inside the call, so the
     setting covers it. The unwrapped function is ``__wrapped__``.

@@ -4,8 +4,9 @@ and the layers that call it (``models.layers._ConvF32``), on the CPU.
 The plain version spells out the CUDA kernel's implicit GEMM; here it is held
 to torch's autograd of ``nn.Conv2d`` / ``nn.ConvTranspose2d`` at every
 geometry of the cnn models, and the layers' other outputs to torch's: bit for
-bit where they are torch's calls, to float32 rounding where they are
-``conv_dgrad_f32``'s (``tests/test_torch_conv_dgrad.py``).
+bit where they are torch's calls (``conv_fprop_f32``'s plain version is
+torch's convolution, ``tests/test_torch_conv_fprop.py``), to float32
+rounding where they are ``conv_dgrad_f32``'s (``tests/test_torch_conv_dgrad.py``).
 """
 
 import numpy as np
@@ -77,11 +78,14 @@ def test_plain_weight_grad_matches_autograd(transposed, geometry):
 def test_layer_forward_and_input_grad_are_unchanged(transposed, geometry, bias):
     """The float32 layer through ``_ConvF32`` against torch's own layer with
     the same weights: a convolution's forward, a transposed one's input
-    gradient and the bias gradient bit for bit (torch's calls); the weight
-    gradient, a convolution's input gradient and a transposed one's forward
-    (``conv_wgrad_f32`` and ``conv_dgrad_f32``) to float32 rounding, relative
-    to the largest element. The output gradient is a permuted view, as the
-    decoders' last layer receives it (NCHW -> NHWC)."""
+    gradient (``conv_fprop_f32``, on the CPU torch's convolution) and the
+    bias gradient bit for bit (a biased convolution's forward against torch's
+    convolution without bias plus the bias, as the layer adds it after the
+    kernel); the weight gradient, a convolution's input gradient and a
+    transposed one's forward (``conv_wgrad_f32`` and ``conv_dgrad_f32``) to
+    float32 rounding, relative to the largest element. The output gradient is
+    a permuted view, as the decoders' last layer receives it (NCHW ->
+    NHWC)."""
     c_in, c_out, k, s, p, _ = geometry
     ref = _torch_layer(transposed, geometry, bias=bias)
     cls = layers.ConvTranspose2d if transposed else layers.Conv2d
@@ -97,6 +101,10 @@ def test_layer_forward_and_input_grad_are_unchanged(transposed, geometry, bias):
     forward, input_grad = (y_port.detach(), y_ref.detach()), (x_port.grad, x_ref.grad)
     # a transposed convolution's forward is the data-gradient kernel's sum
     kernel_made, torch_made = (forward, input_grad) if transposed else (input_grad, forward)
+    if bias and not transposed:
+        with torch.no_grad():
+            biased = torch.nn.functional.conv2d(x_ref, ref.weight, None, s, p)
+            torch_made = (y_port.detach(), biased + ref.bias.reshape(-1, 1, 1))
     assert torch.equal(*torch_made)
     if bias:
         assert torch.equal(port.bias.grad, ref.bias.grad)
@@ -140,19 +148,14 @@ def test_first_layer_skips_the_input_gradient(monkeypatch):
 ], ids=["k3", "groups2", "dilation2", "stride3", "padding2", "k4x2"])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_geometry_outside_the_kernel_raises(kw, match, transposed):
-    """A convolution's forward is torch's call and its weight gradient raises;
-    a transposed convolution's forward (``conv_dgrad_f32``) raises."""
+    """A convolution's forward (``conv_fprop_f32``) and a transposed
+    convolution's forward (``conv_dgrad_f32``) raise."""
     args = dict(kernel_size=4, stride=2, padding=1, groups=1, dilation=1) | kw
     cls = layers.ConvTranspose2d if transposed else layers.Conv2d
     layer = cls(4, 8, args.pop("kernel_size"), **args)
     x = torch.zeros((2, 4, 8, 8))
-    if transposed:
-        with pytest.raises(ValueError, match=match):
-            layer(x)
-        return
-    y = layer(x)
     with pytest.raises(ValueError, match=match):
-        y.sum().backward()
+        layer(x)
 
 
 def test_non_contiguous_input_raises():
@@ -225,8 +228,8 @@ def test_bf16_policies_do_not_enter_the_function(monkeypatch, policy):
 
 
 def test_evaluation_computes_no_weight_gradient(monkeypatch):
-    """Without gradients (evaluation, serving) the layer is torch's forward
-    call and nothing else."""
+    """Without gradients (evaluation, serving) the layer is the forward
+    (``conv_fprop_f32``, on the CPU torch's call) and nothing else."""
     plain = []
     real = kernels.conv_wgrad_plain
     monkeypatch.setattr(kernels, "conv_wgrad_plain",
